@@ -5,21 +5,33 @@
 
 Phases, each of which fails the run when it fails:
 
-1. build the fusion-loss kernels from ``src/repro_torch/kernels`` (nvcc,
-   ``sm_90a``) and print the build seconds and ``-Xptxas -v``;
-2. set up the main path — ``MFLExperiment(dataset, K=10, n_samples=1200,
-   engine="batched:seq+pallas")`` for CREMA-D and IEMOCAP — and hold every
-   kernel against its plain PyTorch version on the card, in float32 and
-   float64, at the shape each experiment's own client stack gives the
-   kernels (labels, sample mask and modality ownership taken from it), and
-   at an LM-like shape with one broadcast head (K=1, T=512, V=32000, M=3);
-3. drive the main path — CREMA-D for 5 rounds, then IEMOCAP for 2 — with
-   the launch counters set to 0 just before and read after each run, and
-   check its output: finite params, every metric present, and small twin
-   runs of both datasets on the card that agree with the plain path on the
-   CPU;
-4. time each kernel (CUDA events, after warm-up) beside its plain version
-   and its bound, at every shape of phase 2.
+1. build the three kernel libraries from ``src/repro_torch/kernels`` (one
+   nvcc per source, all started together, ``sm_90a``) and print the build
+   seconds and each ``-Xptxas -v``;
+2. set up the main path — the paper's ``MFLExperiment(dataset, K=10,
+   n_samples=1200, engine="batched:seq+pallas")`` for CREMA-D and IEMOCAP,
+   and the same with ``arch="transformer"`` and ``arch="ssd"`` — and hold
+   every kernel against its plain PyTorch version on the card, in float32
+   and float64:
+   * the fusion loss at the shape each paper experiment's own client stack
+     gives it (labels, sample mask and modality ownership taken from it)
+     and at an LM-like shape with one broadcast head (K=1, T=512, V=32000,
+     M=3);
+   * flash attention and the SSD chunk kernel on the operands the backbone
+     experiments' own forward passes hand them (captured from the client
+     stacks and the test split), and at the JAX package's kernel-sweep
+     shapes (tests/test_kernels.py; attention in bfloat16 too), with the
+     autograd Functions' gradients against plain autograd;
+3. drive the main path — paper CREMA-D for 3 rounds and IEMOCAP for 1, then
+   each backbone on each dataset for 2 rounds — with the launch counters
+   set to 0 just before and read after each run, failing if a kernel of
+   that run's path was not launched; check its output: finite params,
+   every metric present, one ``+remat`` round equal to the plain round, and
+   small twin runs on the card that agree with the plain path on the CPU;
+   profile one paper, one transformer and one SSD round;
+4. time each kernel (CUDA events, after warm-up) beside its plain version,
+   its bound and, where one PyTorch call computes the same function, that
+   call, at every shape of phase 2.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, without CUDA.
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
@@ -33,6 +45,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -50,22 +63,52 @@ REPLACES = {
     "fusion_loss_fwd": "src/repro/kernels/fusion_loss/kernel.py:78",
     "fusion_loss_bwd": "src/repro/kernels/fusion_loss/kernel.py:215",
     "fusion_loss_reduce": "src/repro/kernels/fusion_loss/kernel.py:215",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:25",
+    "ssd_chunk_fwd": "src/repro/kernels/ssd_scan/kernel.py:22",
 }
-SOURCE = "src/repro_torch/kernels/fusion_loss/csrc/fusion_loss.cu"
+_CSRC = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+SOURCES = {"fusion_loss_fwd": _CSRC.format("fusion_loss"),
+           "fusion_loss_bwd": _CSRC.format("fusion_loss"),
+           "fusion_loss_reduce": _CSRC.format("fusion_loss"),
+           "flash_attention_fwd": _CSRC.format("flash_attention"),
+           "ssd_chunk_fwd": _CSRC.format("ssd_scan")}
 #: the kernels the main path launches (the training step reads no gsq/gdot,
 #: so it launches no partial reduce)
-PATH_KERNELS = ("fusion_loss_fwd", "fusion_loss_bwd")
+PATH_KERNELS = ("fusion_loss_fwd", "fusion_loss_bwd", "flash_attention_fwd",
+                "ssd_chunk_fwd")
+#: the kernels each architecture's runs must launch
+ARCH_KERNELS = {"lstm-cnn": ("fusion_loss_fwd", "fusion_loss_bwd"),
+                "transformer": ("fusion_loss_fwd", "fusion_loss_bwd",
+                                "flash_attention_fwd"),
+                "ssd": ("fusion_loss_fwd", "fusion_loss_bwd",
+                        "ssd_chunk_fwd")}
 
-#: the main path: each dataset with its rounds, at MFLExperiment's defaults
-MAIN_PATH = (("crema_d", 5), ("iemocap", 2))
+#: the main path: (arch, dataset, rounds) at MFLExperiment's defaults; the
+#: paper runs are cut from 5 + 2 rounds to 3 + 1 to fit the backbones in
+MAIN_PATH = (("lstm-cnn", "crema_d", 3), ("lstm-cnn", "iemocap", 1),
+             ("transformer", "crema_d", 2), ("transformer", "iemocap", 2),
+             ("ssd", "crema_d", 2), ("ssd", "iemocap", 2))
 MAIN_KW = dict(K=10, n_samples=1200, engine="batched:seq+pallas")
 
 # tolerances, float32 kernel against the plain version (another summation
-# order): per-row losses and residuals, per-element gradients, and the
-# gsq/gdot sums over K·T·V terms
+# order): fusion-loss per-row losses and residuals, per-element gradients,
+# and the gsq/gdot sums over K·T·V terms; attention and SSD as the JAX
+# package's kernel sweeps hold its kernels (tests/test_kernels.py), and
+# bfloat16 attention likewise
 TOL_FWD = dict(rtol=1e-5, atol=1e-5)
 TOL_BWD = dict(rtol=1e-5, atol=2e-6)
 TOL_SUM = dict(rtol=1e-4, atol=1e-6)
+TOL_ATTN = dict(rtol=2e-5, atol=2e-5)
+TOL_ATTN_BF16 = dict(rtol=3e-2, atol=3e-2)
+TOL_SSD = dict(rtol=1e-4, atol=1e-4)
+TOL_GRAD = dict(rtol=1e-5, atol=1e-5)
+
+#: the JAX package's kernel sweeps (tests/test_kernels.py): attention
+#: (B, H, KH, S, hd, window) and SSD chunks (B, nc, Q, nh, hp, N)
+ATTN_SWEEP = ((1, 4, 2, 128, 64, None), (2, 4, 4, 256, 32, None),
+              (1, 8, 2, 256, 64, 64), (1, 2, 1, 512, 128, 128))
+SSD_SWEEP = ((1, 2, 64, 2, 32, 16), (2, 4, 32, 4, 16, 8),
+             (1, 1, 128, 8, 64, 32))
 
 
 def gpu_line() -> str:
@@ -90,9 +133,17 @@ def time_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, kernel: str, iters: int = 50):
-    """Mean device time of ``kernel`` per launch from ``torch.profiler``,
-    or None when the trace shows no device time."""
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_ms(torch, fn, kernel=None, iters: int = 50):
+    """Mean device time from ``torch.profiler``: of ``kernel`` per launch,
+    or, for ``kernel=None``, of everything one call of ``fn`` runs on the
+    device; None when the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -100,6 +151,11 @@ def device_ms(torch, fn, kernel: str, iters: int = 50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    if kernel is None:
+        cuda = torch.autograd.DeviceType.CUDA
+        total = sum(_device_us(e) for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == cuda)
+        return total / iters / 1e3 if total else None
     for evt in prof.key_averages():
         if kernel in evt.key:
             total = (getattr(evt, "device_time_total", 0)
@@ -109,8 +165,45 @@ def device_ms(torch, fn, kernel: str, iters: int = 50):
     return None
 
 
+def bound(bytes_ops):
+    nbytes, ops = bytes_ops
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def check(torch, name, got, want, tol, errs):
+    got = got.double()
+    want = want.double()
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, **tol)
+    print(f"  {name:44s} max|err| {err:.3e}  (rtol {tol['rtol']:g}, "
+          f"atol {tol['atol']:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    errs.append(err)
+    return err
+
+
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 1: build
+# ---------------------------------------------------------------------------
+def build_phase():
+    """One nvcc per source, all started together."""
+    from repro_torch.kernels.flash_attention import build as fa_build
+    from repro_torch.kernels.fusion_loss import build as fl_build
+    from repro_torch.kernels.ssd_scan import build as ssd_build
+    libs = [fl_build.LIBRARY, fa_build.LIBRARY, ssd_build.LIBRARY]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(verbose=True), libs))
+    for lib in libs:
+        lib.load()
+    print(f"[build] {len(libs)} kernel libraries built (one nvcc each, in "
+          f"parallel) and loaded in {time.perf_counter() - t0:.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 2a: the fusion-loss kernels against their plain versions
 # ---------------------------------------------------------------------------
 def make_case(torch, labels, avail, mask, V, seg, seed):
     """Cohort inputs on the card for labels [K, T] and avail [M, K, T]:
@@ -160,9 +253,9 @@ def lm_case(torch):
 
 
 def work(case, nblk):
-    """(bytes, operations) each kernel needs on this case: every input read
-    once, every output written once.  The backward is counted as the main
-    path runs it, without partials."""
+    """(bytes, operations) each fusion-loss kernel needs on this case: every
+    input read once, every output written once.  The backward is counted
+    as the main path runs it, without partials."""
     K, T, V, M = case["shape"]
     KT = K * T
     operands = sum(x.numel() for x in case["logits"]) * 4
@@ -177,33 +270,15 @@ def work(case, nblk):
             "fusion_loss_reduce": red}
 
 
-def bound(bytes_ops):
-    nbytes, ops = bytes_ops
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def check(torch, name, got, want, tol, errs):
-    got = got.double()
-    want = want.double()
-    err = float((got - want).abs().max())
-    ok = torch.allclose(got, want, **tol)
-    print(f"  {name:34s} max|err| {err:.3e}  (rtol {tol['rtol']:g}, "
-          f"atol {tol['atol']:g}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{name}: kernel disagrees with plain version")
-    errs.append(err)
-    return err
-
-
 def kernel_phase(torch, ops, ref, exps):
-    """Kernel vs plain (float32 and float64) at each main-path experiment's
-    shape and the LM-like one; returns the cases and the max abs error per
-    kernel against the float32 plain."""
+    """Fusion-loss kernels vs plain (float32 and float64) at each paper
+    experiment's shape and the LM-like one; returns the cases and the max
+    abs error per kernel against the float32 plain."""
     cases = {name: path_case(torch, exp, seed=1 + i)
              for i, (name, exp) in enumerate(exps.items())}
     cases["lm"] = lm_case(torch)
-    errs = {k: [] for k in REPLACES}
+    errs = {k: [] for k in ("fusion_loss_fwd", "fusion_loss_bwd",
+                            "fusion_loss_reduce")}
     for label, c in cases.items():
         K, T, V, M = c["shape"]
         print(f"[kernels] {label}: K={K} T={T} V={V} M={M} seg={c['seg']}")
@@ -261,15 +336,197 @@ def kernel_phase(torch, ops, ref, exps):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: flash attention and the SSD chunk kernel against their plain
+# versions
+# ---------------------------------------------------------------------------
+class Capture:
+    """Records, per distinct operand shape, the first operands the main
+    path hands a front end (``module.name``) while the context is open."""
+
+    def __init__(self, torch, module, name, label):
+        self.torch, self.module, self.name = torch, module, name
+        self.label = label
+        self.seen = {}
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapper(*args, **kw):
+            key = tuple(tuple(a.shape) for a in args
+                        if isinstance(a, self.torch.Tensor))
+            if key not in self.seen:
+                self.seen[key] = dict(
+                    args=[a.detach().clone()
+                          if isinstance(a, self.torch.Tensor) else a
+                          for a in args], kw=dict(kw), label=self.label)
+            return self.orig(*args, **kw)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def capture_backbone_operands(torch, exps):
+    """The operands each backbone experiment's own forward passes hand the
+    kernels: one cohort forward over the client stack and one eval forward
+    over the test split."""
+    from repro_torch.core.trees import tree_map
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    found = {"attn": {}, "ssd_chunk": {}, "ssd_forward": {}}
+    for (arch, dataset), exp in exps.items():
+        feats, _, _ = exp._get_stacked()
+        K = exp.params.K
+        stacked = {m: tree_map(lambda x: x.expand(K, *x.shape),
+                               exp.global_params[m]) for m in feats}
+        test = {m: torch.as_tensor(x, device=DEVICE)
+                for m, x in exp.test_ds.features.items()}
+        for where, run in (
+                ("cohort", lambda: exp.adapter.modal_logits(stacked, feats)),
+                ("eval", lambda: exp.adapter.eval_logits(exp.global_params,
+                                                         test))):
+            label = f"{arch}/{dataset}/{where}"
+            caps = {"attn": Capture(torch, fa_ops, "flash_attention", label),
+                    "ssd_chunk": Capture(torch, ssd_ops, "ssd_chunk", label),
+                    "ssd_forward": Capture(torch, ssd_ops, "ssd_forward",
+                                           label)}
+            with torch.no_grad(), caps["attn"], caps["ssd_chunk"], \
+                    caps["ssd_forward"]:
+                run()
+            for k, cap in caps.items():
+                for key, rec in cap.seen.items():
+                    found[k].setdefault(key, rec)
+    return found
+
+
+def attn_case(torch, q, k, v, window, label, dtype=None):
+    """q [B,S,H,hd], k/v [B,S,KH,hd] on the card (the model's layout)."""
+    if dtype is not None:
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+    B, S, H, hd = q.shape
+    return dict(q=q, k=k, v=v, window=window, label=label,
+                shape=f"B={B} S={S} H={H} KH={k.shape[2]} hd={hd}"
+                      + (f" window={window}" if window else "")
+                      + ("" if q.dtype == torch.float32 else " bf16"))
+
+
+def ssd_case(x, cum, Bm, Cm, label):
+    B, nc, Q, nh, hp = x.shape
+    return dict(x=x, cum=cum, Bm=Bm, Cm=Cm, label=label,
+                shape=f"B={B} nc={nc} Q={Q} nh={nh} hp={hp} "
+                      f"N={Bm.shape[-1]}")
+
+
+def backbone_cases(torch, found):
+    """Attention and SSD cases: the main path's captured operands first,
+    then the JAX sweep's shapes from a seeded generator on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    attn = [attn_case(torch, *rec["args"], rec["kw"].get("window"),
+                      rec["label"]) for rec in found["attn"].values()]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, KH, S, hd, win in ATTN_SWEEP:
+            q = torch.randn((B, H, S, hd), device=DEVICE, generator=g)
+            k, v = (torch.randn((B, KH, S, hd), device=DEVICE, generator=g)
+                    for _ in range(2))
+            # the sweep's [B, H, S, hd] layout goes in as a strided view
+            attn.append(attn_case(torch, q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), win, "jax-sweep", dtype))
+    ssd = [ssd_case(*rec["args"], rec["label"])
+           for rec in found["ssd_chunk"].values()]
+    for B, nc, Q, nh, hp, N in SSD_SWEEP:
+        x = torch.randn((B, nc, Q, nh, hp), device=DEVICE, generator=g)
+        cum = torch.cumsum(-torch.rand((B, nc, Q, nh), device=DEVICE,
+                                       generator=g) * 0.1, dim=2)
+        Bm, Cm = (torch.randn((B, nc, Q, N), device=DEVICE, generator=g)
+                  for _ in range(2))
+        ssd.append(ssd_case(x, cum, Bm, Cm, "jax-sweep"))
+    return attn, ssd
+
+
+def backbone_kernel_phase(torch, found):
+    """Flash attention and the SSD chunk kernel against their plain
+    versions in float32 and float64 at every case; the autograd Functions
+    against plain autograd at the main path's operands.  Returns the cases
+    and the max abs error per kernel against the float32 plain version
+    (float32 inputs)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.models import layers, mamba2
+    attn, ssd = backbone_cases(torch, found)
+    errs = {"flash_attention_fwd": [], "ssd_chunk_fwd": []}
+    for c in attn:
+        print(f"[kernels] flash_attention {c['label']}: {c['shape']}")
+        q, k, v, win = c["q"], c["k"], c["v"], c["window"]
+        out = fa_ops.flash_attention(q, k, v, window=win)
+        torch.cuda.synchronize()
+        f32 = q.dtype == torch.float32
+        tol = TOL_ATTN if f32 else TOL_ATTN_BF16
+        tq, tk, tv = (t.transpose(1, 2) for t in (q, k, v))
+        for dtype in (None, torch.float64):
+            want = fa_ref.attention_ref(tq, tk, tv, window=win,
+                                        dtype=dtype).transpose(1, 2)
+            tag = "f64" if dtype else "plain"
+            check(torch, f"fwd vs {tag}", out.float(), want, tol,
+                  errs["flash_attention_fwd"] if f32 and not dtype else [])
+    for c in ssd:
+        print(f"[kernels] ssd_chunk {c['label']}: {c['shape']}")
+        ins = (c["x"], c["cum"], c["Bm"], c["Cm"])
+        y, st = ssd_ops.ssd_chunk(*ins)
+        torch.cuda.synchronize()
+        for dtype in (torch.float32, torch.float64):
+            yw, sw = ssd_ref.ssd_chunk_ref(*ins, dtype=dtype)
+            sink = errs["ssd_chunk_fwd"] if dtype == torch.float32 else []
+            tag = "f32" if dtype == torch.float32 else "f64"
+            check(torch, f"y_diag vs plain {tag}", y, yw, TOL_SSD, sink)
+            check(torch, f"states vs plain {tag}", st, sw, TOL_SSD, sink)
+
+    # the autograd Functions: kernel forward + recompute backward against
+    # plain autograd, at every main-path operand set
+    grads = [(rec, lambda *a, w=rec["kw"].get("window"):
+              layers.pallas_attention(*a, w, a[0].shape[1]),
+              lambda *a, w=rec["kw"].get("window"):
+              layers.chunked_attention(*a, window=w, chunk=a[0].shape[1]),
+              TOL_ATTN) for rec in found["attn"].values()]
+    grads += [(rec, lambda *a, ch=rec["args"][5]: mamba2.ssd_pallas(
+                   *a[:5], ch),
+               lambda *a, ch=rec["args"][5]: mamba2.ssd_chunked(*a[:5], ch),
+               TOL_SSD) for rec in found["ssd_forward"].values()]
+    for rec, kern, plain, tol in grads:
+        ins = [a for a in rec["args"] if isinstance(a, torch.Tensor)]
+        outs = []
+        for fn in (kern, plain):
+            ts = [t.clone().requires_grad_() for t in ins]
+            o = fn(*ts)
+            cot = torch.randn(o.shape, device=DEVICE,
+                              generator=torch.Generator(device=DEVICE)
+                              .manual_seed(4))
+            torch.autograd.backward(o, cot)
+            outs.append((o.detach(), [t.grad for t in ts]))
+        (o1, g1), (o2, g2) = outs
+        name = "attention" if len(ins) == 3 else "ssd"
+        shape = "x".join(map(str, ins[0].shape))
+        check(torch, f"{name} autograd value {shape} ({rec['label']})", o1,
+              o2, tol, [])
+        for i, (a, b) in enumerate(zip(g1, g2)):
+            check(torch, f"{name} autograd grad[{i}] vs plain autograd", a,
+                  b, TOL_GRAD, [])
+    return attn, ssd, {k: max(v) for k, v in errs.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
-def run_experiment(torch, exp, metric_keys, dataset, rounds):
+def run_experiment(torch, exp, metric_keys, label, rounds):
     for _ in range(rounds):
         t0 = time.perf_counter()
         rec = exp.run_round()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"[main] {dataset} round {rec.round}: {dt * 1e3:.3f} ms "
+        print(f"[main] {label} round {rec.round}: {dt * 1e3:.3f} ms "
               f"(sched {rec.sched_time_s * 1e3:.3f} ms) "
               f"part={rec.participants} fail={rec.failures} "
               f"E={rec.energy_total:.6f} J "
@@ -286,14 +543,7 @@ def run_experiment(torch, exp, metric_keys, dataset, rounds):
             raise AssertionError("non-finite global params")
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
-def profile_round(torch, exp):
+def profile_round(torch, exp, label):
     """One more round under ``torch.profiler``: the device's busy share of
     the round's wall time, the host scheduler's share, and the kernels that
     take the device time."""
@@ -311,12 +561,12 @@ def profile_round(torch, exp):
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == cuda]
     if not events:
-        print("[profile] the trace shows no device events: device busy "
-              "share not measured")
+        print(f"[profile] {label}: the trace shows no device events: device "
+              f"busy share not measured")
         return
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     launches = sum(e.count for e in events)
-    print(f"[profile] crema_d round {rec.round}: wall {wall_ms:.3f} ms, "
+    print(f"[profile] {label} round {rec.round}: wall {wall_ms:.3f} ms, "
           f"host scheduler {rec.sched_time_s * 1e3:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.2%} of wall; idle "
           f"{1 - busy_ms / wall_ms:.2%}), {launches} device ops")
@@ -325,12 +575,12 @@ def profile_round(torch, exp):
               f"{e.key[:90]}")
 
 
-def twin_phase(torch, MFLExperiment, dataset, rounds):
-    """A small run on the card (kernel loss) against the same run on the CPU
-    (plain loss): same participants, params within 1e-4."""
+def twin_phase(torch, MFLExperiment, arch, dataset, rounds):
+    """A small run on the card (kernels) against the same run on the CPU
+    (plain versions): same participants, params within 1e-4."""
     from repro_torch.convert import params_to_numpy
     from repro_torch.core.trees import tree_leaves
-    kw = dict(K=4, n_samples=160)
+    kw = dict(K=4, n_samples=160, arch=arch)
     gpu = MFLExperiment(dataset, engine="batched:seq+pallas", **kw)
     cpu = MFLExperiment(dataset, engine="batched:seq", device="cpu", **kw)
     for _ in range(rounds):
@@ -341,11 +591,37 @@ def twin_phase(torch, MFLExperiment, dataset, rounds):
     a = tree_leaves(params_to_numpy(gpu.global_params))
     b = tree_leaves(params_to_numpy(cpu.global_params))
     err = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
-    print(f"[main] {dataset} twin run ({rounds} rounds) card/pallas vs "
-          f"cpu/plain: participants equal, params max|err| {err:.3e} "
+    print(f"[main] {arch}/{dataset} twin run ({rounds} rounds) card/kernels "
+          f"vs cpu/plain: participants equal, params max|err| {err:.3e} "
           f"(tol 1e-4)")
     if err > 1e-4:
-        raise AssertionError(f"{dataset}: card and cpu twin runs disagree")
+        raise AssertionError(f"{arch}/{dataset}: card and cpu twin runs "
+                             f"disagree")
+
+
+def remat_phase(torch, MFLExperiment, counters, arch):
+    """One ``+remat`` round against the plain round on the same seed:
+    same participants, params within 1e-6; prints both rounds' launches
+    (under remat the cohort forward runs again in the backward)."""
+    from repro_torch.core.trees import tree_leaves
+    recs, params, counts = [], [], []
+    for engine in (MAIN_KW["engine"], MAIN_KW["engine"] + "+remat"):
+        exp = MFLExperiment("crema_d", arch=arch,
+                            **dict(MAIN_KW, engine=engine))
+        reset, read = counters
+        reset()
+        recs.append(exp.run_round())
+        torch.cuda.synchronize()
+        counts.append({k: v for k, v in read().items() if v})
+        params.append(tree_leaves(exp.global_params))
+    if recs[0].participants != recs[1].participants:
+        raise AssertionError(f"{arch}: remat changed the participants")
+    err = max(float((a - b).abs().max()) for a, b in zip(*params))
+    print(f"[remat] {arch}/crema_d one round +remat vs plain: params "
+          f"max|err| {err:.3e} (tol 1e-6); launches plain {counts[0]}, "
+          f"remat {counts[1]}")
+    if err > 1e-6:
+        raise AssertionError(f"{arch}: the +remat round differs")
 
 
 # ---------------------------------------------------------------------------
@@ -380,25 +656,104 @@ def timing_phase(torch, ops, ref, cases):
                 lambda: partials.sum(dim=1), "fusion_partials_reduce"),
         }
         w = work(c, load().fusion_loss_bwd_blocks(shape[1]))
+        K, T, V, M = c["shape"]
+        shape_txt = (f"K={K} T={T} V={V} M={M}"
+                     + (f" seg={c['seg']}" if any(c["seg"]) else ""))
         rows = {}
         for name, (kern, plain, lib, kname) in calls.items():
-            b_ms, b_by = bound(w[name])
-            row = {"ms": time_ms(torch, kern),
-                   "device_ms": device_ms(torch, kern, kname),
-                   "plain_ms": time_ms(torch, plain, iters=20, warmup=3),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": (time_ms(torch, lib) if lib else None)}
-            rows[name] = row
-            lib_txt = (f"{row['library_ms']:.6f} ms (partials.sum(dim=1))"
-                       if lib else "none: no single PyTorch call computes "
-                                   "this function")
-            dev_txt = ("not measured" if row["device_ms"] is None
-                       else f"{row['device_ms']:.6f} ms")
-            print(f"[time] {label:7s} {name:18s} {row['ms']:.6f} ms/launch "
-                  f"(device {dev_txt}), plain {row['plain_ms']:.6f} ms, "
-                  f"bound {b_ms:.6f} ms ({b_by}), library {lib_txt}")
+            lib_txt = ("partials.sum(dim=1)" if lib else
+                       "none: no single PyTorch call computes this function")
+            rows[name] = time_row(torch, name, label, shape_txt, kern, plain,
+                                  lib, lib_txt, w[name], kname)
         per_shape[label] = rows
     return per_shape
+
+
+def time_row(torch, name, label, shape_txt, kern, plain, lib, lib_txt,
+             work_, kname):
+    b_ms, b_by = bound(work_)
+    row = {"ms": time_ms(torch, kern),
+           "device_ms": device_ms(torch, kern, kname),
+           "plain_ms": time_ms(torch, plain, iters=20, warmup=3),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": (time_ms(torch, lib) if lib else None),
+           "library_device_ms": (device_ms(torch, lib) if lib else None),
+           "shape": shape_txt, "label": label}
+    dev_txt = ("not measured" if row["device_ms"] is None
+               else f"{row['device_ms']:.6f} ms")
+    lib_ms = ("" if lib is None else
+              f"{row['library_ms']:.6f} ms (device "
+              + ("not measured" if row["library_device_ms"] is None
+                 else f"{row['library_device_ms']:.6f} ms") + ") ")
+    print(f"[time] {label} {name} ({shape_txt}): {row['ms']:.6f} ms/launch "
+          f"(device {dev_txt}), plain {row['plain_ms']:.6f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}), library {lib_ms}({lib_txt})")
+    return row
+
+
+def attn_work(c):
+    """(bytes, operations) of one attention call: q, k, v read once, o
+    written once; per visible (query, key) pair the two hd-long products
+    (4·hd) plus scale, exp and sum."""
+    B, S, H, hd = c["q"].shape
+    KH = c["k"].shape[2]
+    esz = c["q"].element_size()
+    win = c["window"]
+    pairs = sum(min(i + 1, win) if win else i + 1 for i in range(S))
+    return ((2 * B * S * H * hd + 2 * B * S * KH * hd) * esz,
+            B * H * pairs * (4 * hd + 3))
+
+
+def ssd_work(c):
+    """(bytes, operations) of one SSD chunk call: x, cum, B, C read once,
+    y_diag and the states written once; per (batch, chunk, head) the
+    lower-triangle scores (2N + 2 each: dot, exp, product), W·x over the
+    triangle and the state product (3 per term)."""
+    B, nc, Q, nh, hp = c["x"].shape
+    N = c["Bm"].shape[-1]
+    nbytes = 4 * (2 * c["x"].numel() + c["cum"].numel()
+                  + 2 * c["Bm"].numel() + B * nc * nh * N * hp)
+    tri = Q * (Q + 1) // 2
+    per = tri * (2 * N + 2) + tri * 2 * hp + Q * N * hp * 3 + Q
+    return nbytes, B * nc * nh * per
+
+
+def backbone_timing_phase(torch, attn, ssd):
+    """Times of the two backbone kernels at every case; the library call
+    for attention is ``F.scaled_dot_product_attention(..., is_causal=True)``
+    at the shapes without a window (timing only; the port never calls
+    it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    rows = {"flash_attention_fwd": [], "ssd_chunk_fwd": []}
+    for c in attn:
+        q, k, v, win = c["q"], c["k"], c["v"], c["window"]
+        tq, tk, tv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = None
+        if win is None:
+            R = q.shape[2] // k.shape[2]
+            ek, ev = (t.repeat_interleave(R, dim=1) for t in (tk, tv))
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                tq, ek, ev, is_causal=True)
+        rows["flash_attention_fwd"].append(time_row(
+            torch, "flash_attention_fwd", c["label"], c["shape"],
+            lambda: fa_ops._launch(q, k, v, win),
+            lambda: fa_ref.attention_ref(tq, tk, tv, window=win), lib,
+            "F.scaled_dot_product_attention(is_causal=True)" if lib else
+            "none: SDPA takes no sliding window",
+            attn_work(c), "flash_attention_fwd_kernel"))
+    for c in ssd:
+        ins = (c["x"], c["cum"], c["Bm"], c["Cm"])
+        rows["ssd_chunk_fwd"].append(time_row(
+            torch, "ssd_chunk_fwd", c["label"], c["shape"],
+            lambda: ssd_ops._launch(*ins),
+            lambda: ssd_ref.ssd_chunk_ref(*ins), None,
+            "none: no single PyTorch call computes this function",
+            ssd_work(c), "ssd_chunk_fwd_kernel"))
+    return rows
 
 
 def main() -> int:
@@ -409,7 +764,9 @@ def main() -> int:
         return 1
     from repro_torch.fl.eval import metric_keys
     from repro_torch.fl.runtime import MFLExperiment
-    from repro_torch.kernels.fusion_loss import build, ops, ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fusion_loss import ops, ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -418,70 +775,83 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     card = gpu_line()
     print(f"[gpu] {card}")
+    t_start = time.perf_counter()
+
+    def reset_counts():
+        for m in (ops, fa_ops, ssd_ops):
+            m.reset_launch_counts()
+
+    def read_counts():
+        return {**ops.launch_counts(), **fa_ops.launch_counts(),
+                **ssd_ops.launch_counts()}
 
     # phase 1: build
-    t0 = time.perf_counter()
-    build.build(verbose=True)
-    build.load()
-    print(f"[build] fusion_loss kernels built and loaded in "
-          f"{time.perf_counter() - t0:.3f} s")
+    build_phase()
 
     # phase 2: the main path's experiments, and the kernels against their
     # plain versions at the shapes those experiments give them
     exps = {}
-    for dataset, _ in MAIN_PATH:
+    for arch, dataset, _ in MAIN_PATH:
         t0 = time.perf_counter()
-        exps[dataset] = MFLExperiment(dataset, **MAIN_KW)
-        print(f"[main] {dataset}: set-up {time.perf_counter() - t0:.3f} s")
-    cases, max_err = kernel_phase(torch, ops, ref, exps)
+        exps[arch, dataset] = MFLExperiment(dataset, arch=arch, **MAIN_KW)
+        print(f"[main] {arch}/{dataset}: set-up "
+              f"{time.perf_counter() - t0:.3f} s")
+    cases, max_err = kernel_phase(
+        torch, ops, ref, {d: e for (a, d), e in exps.items()
+                          if a == "lstm-cnn"})
+    found = capture_backbone_operands(
+        torch, {key: e for key, e in exps.items() if key[0] != "lstm-cnn"})
+    attn, ssd, bb_err = backbone_kernel_phase(torch, found)
+    max_err.update(bb_err)
 
     # phase 3: the main path, counters set to 0 just before and read after
     # each run
-    ops.reset_launch_counts()
-    seen = ops.launch_counts()
-    for dataset, rounds in MAIN_PATH:
-        run_experiment(torch, exps[dataset], metric_keys, dataset, rounds)
-        now = ops.launch_counts()
-        print(f"[main] {dataset} launches: "
-              f"{ {k: now[k] - seen[k] for k in now} }")
-        for name in PATH_KERNELS:
-            if now[name] == seen[name]:
-                raise AssertionError(f"{name} was not launched by {dataset}")
-        seen = now
-    launches = seen
+    launches = {k: 0 for k in read_counts()}
+    for arch, dataset, rounds in MAIN_PATH:
+        label = f"{arch}/{dataset}"
+        reset_counts()
+        run_experiment(torch, exps[arch, dataset], metric_keys, label,
+                       rounds)
+        now = read_counts()
+        print(f"[main] {label} launches ({rounds} rounds): {now}")
+        for name in ARCH_KERNELS[arch]:
+            if not now[name]:
+                raise AssertionError(f"{name} was not launched by {label}")
+        for k, v in now.items():
+            launches[k] += v
     if launches["fusion_loss_reduce"]:
         raise AssertionError("the training step launched the partial reduce")
-    for dataset, rounds in MAIN_PATH:
-        twin_phase(torch, MFLExperiment, dataset, min(rounds, 2))
-    profile_round(torch, exps["crema_d"])
+    for arch in ("transformer", "ssd"):
+        remat_phase(torch, MFLExperiment, (reset_counts, read_counts), arch)
+    for arch, dataset, rounds in MAIN_PATH:
+        twin_phase(torch, MFLExperiment, arch, dataset, min(rounds, 2))
+    for arch in ("lstm-cnn", "transformer", "ssd"):
+        profile_round(torch, exps[arch, "crema_d"], f"{arch}/crema_d")
 
     # phase 4: times
     times = timing_phase(torch, ops, ref, cases)
-
-    def shape_txt(label):
-        K, T, V, M = cases[label]["shape"]
-        seg = cases[label]["seg"]
-        return (f"K={K} T={T} V={V} M={M}"
-                + (f" seg={seg}" if any(seg) else ""))
+    bb_times = backbone_timing_phase(torch, attn, ssd)
 
     def entry(name):
-        row = times["crema_d"][name]
+        rows = (bb_times[name] if name in bb_times else
+                [times[label][name] for label in times])
+        row = rows[0]
         return {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "device_ms": row["device_ms"], "shape": shape_txt("crema_d"),
-            "other_shapes": {label: dict(times[label][name],
-                                         shape=shape_txt(label))
-                             for label in times if label != "crema_d"},
+            "device_ms": row["device_ms"], "shape": row["shape"],
+            "other_shapes": rows[1:],
         }
 
     # the partial reduce runs only where gsq/gdot are asked for
     # (fusion_loss_grads), not on the main path
     print("[reduce] " + json.dumps(entry("fusion_loss_reduce")))
     kernels = [entry(name) for name in PATH_KERNELS]
+    print(f"[done] {time.perf_counter() - t_start:.3f} s after the card "
+          f"check")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """Parameters across the package boundary, as numpy.
 
 The port keeps the JAX package's parameter layout (``{modality: {name:
-array}}`` with the same leaf names, shapes and layouts), so carrying a
-parameter tree across is a leafwise copy: the JAX side hands over
-``jax.tree.map(np.asarray, params)`` and gets numpy back the same way.
+array}}`` with the same leaf names, shapes and layouts, nested to any
+depth — the encoder trees' ``blocks/l0/mixer/...`` leaves keep their
+leading ``n_blocks`` axis), so carrying a parameter tree across is a
+leafwise copy: the JAX side hands over ``jax.tree.map(np.asarray,
+params)`` and gets numpy back the same way.  ``tree_leaves`` visits the
+result in ``jax.tree.leaves`` order (sorted keys at every level).
 """
 from __future__ import annotations
 

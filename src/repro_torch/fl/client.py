@@ -6,8 +6,15 @@ available modalities are updated (missing submodels contribute exactly
 zero).
 
 ``ModelAdapter`` owns the architecture-agnostic parts — the whole-cohort BGD
-step, the loss-backend selection, eval — and ``PaperModelAdapter`` supplies
-the paper's LSTM/CNN submodels (models/paper_models.py).
+step, the loss-backend selection, optional remat, eval — and subclasses
+supply the model family:
+
+* ``PaperModelAdapter`` — the paper's LSTM/CNN submodels
+  (models/paper_models.py);
+* ``BackboneAdapter`` — transformer- or SSD-backed unimodal encoders
+  (models/multimodal.py over ``ENCODER_PRESETS``), optionally routing the
+  mixers through the flash-attention / SSD CUDA kernels
+  (``use_kernels=True``).
 
 The cohort step computes every client's gradient without ``vmap``: the
 global params are expanded to [K, ...] leaf stacks, the per-client totals
@@ -20,11 +27,15 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import fusion
 from ..core.trees import tree_leaves, tree_map, tree_sq_dist
+from ..data.scenarios import DATASET_SHAPES
 from ..kernels.fusion_loss import ops as fusion_kops
+from ..models import multimodal as mm
 from ..models import paper_models as pm
+from ..models.config import FL_ARCHS, encoder_config
 from .eval import eval_metrics, paper_logits
 
 LOSS_BACKENDS = ("xla", "pallas")
@@ -40,6 +51,8 @@ class ModelAdapter:
     ``loss_backend`` keeps the JAX package's names: ``"xla"`` is the plain
     PyTorch loss (``core.fusion``, one client at a time), ``"pallas"`` the
     CUDA fusion-loss kernel over the whole cohort (``kernels/fusion_loss``).
+    ``remat`` checkpoints the cohort forward (``torch.utils.checkpoint``):
+    the backward recomputes its activations instead of holding them.
     """
 
     #: default pre-set modal weights v_m (Eq. 3); subclasses override
@@ -47,7 +60,8 @@ class ModelAdapter:
 
     def __init__(self, dataset_name: str, eta: float = 0.05,
                  v_weights: Optional[Mapping[str, float]] = None,
-                 dropout: float = 0.1, loss_backend: str = "xla"):
+                 dropout: float = 0.1, loss_backend: str = "xla",
+                 remat: bool = False):
         if loss_backend not in LOSS_BACKENDS:
             raise ValueError(
                 f"unknown loss_backend {loss_backend!r}; expected "
@@ -59,6 +73,7 @@ class ModelAdapter:
                               else v_weights)
         self.dropout = dropout
         self.loss_backend = loss_backend
+        self.remat = remat
 
     # ------------------------------------------------------------------
     # the architecture: subclasses implement these two
@@ -106,8 +121,12 @@ class ModelAdapter:
         stacked = {m: tree_map(lambda x: x.detach().expand(K, *x.shape)
                                .clone().requires_grad_(), params[m])
                    for m in mods}
-        logits = self.modal_logits(stacked, feats, dropout_seeds=seeds)
-        totals = self.cohort_loss(logits, labels, avail, smask, v_weights)
+        def forward():
+            logits = self.modal_logits(stacked, feats, dropout_seeds=seeds)
+            return self.cohort_loss(logits, labels, avail, smask, v_weights)
+
+        totals = (checkpoint(forward, use_reentrant=False) if self.remat
+                  else forward())
         # sum, not mean: each client's gradient lands in its own slice
         leaves = tree_leaves(stacked)
         it = iter(torch.autograd.grad(totals.sum(), leaves))
@@ -174,14 +193,66 @@ class PaperModelAdapter(ModelAdapter):
         return paper_logits(params, inputs)
 
 
+class BackboneAdapter(ModelAdapter):
+    """Transformer- or SSD-backed unimodal encoders under decision fusion.
+
+    Each modality's feature stack runs through a small sequence encoder
+    (``models.config.ENCODER_PRESETS``) to C-class logits; fusion, loss and
+    aggregation are the shared machinery.  ``use_kernels=True`` routes the
+    mixers through the flash-attention / SSD CUDA kernels (the backward
+    recomputes through the plain path), in the cohort step and in eval."""
+
+    DEFAULT_V = {"audio": 1.0, "text": 1.0, "image": 1.0}
+
+    def __init__(self, dataset_name: str, arch: str = "transformer",
+                 use_kernels: bool = False, **kw):
+        super().__init__(dataset_name, **kw)
+        self.arch = arch
+        self.use_kernels = use_kernels
+        self.cfg = encoder_config(arch)
+
+    @property
+    def _impl(self) -> str:
+        return "pallas" if self.use_kernels else "xla"
+
+    def init_global(self, generator: torch.Generator,
+                    device) -> Dict[str, dict]:
+        shapes, n_classes = DATASET_SHAPES[self.dataset_name]
+        return {m: tree_map(lambda x: x.to(device), mm.init_encoder(
+                    generator, int(np.prod(shapes[m][1:])), n_classes,
+                    self.cfg))
+                for m in sorted(shapes)}
+
+    def _logits(self, params, inputs, dropout_seeds, remat):
+        out = {}
+        for m in sorted(inputs):
+            # the paper models' per-modality stream constants, so a
+            # modality-subset call and the full stack draw the same masks
+            keys = (None if dropout_seeds is None
+                    else pm.fold_in(dropout_seeds, pm.MODALITY_INDEX[m]))
+            out[m] = mm.encoder_apply(
+                params[m], inputs[m], self.cfg, dropout_keys=keys,
+                dropout=self.dropout, remat=remat, impl=self._impl)
+        return out
+
+    def modal_logits(self, params, inputs: dict, *, dropout_seeds=None):
+        return self._logits(params, inputs, dropout_seeds, self.remat)
+
+    def eval_logits(self, params, inputs: dict):
+        """One model's [B, C] logits per modality, run as a cohort of
+        one."""
+        one = {m: tree_map(lambda x: x[None], params[m]) for m in inputs}
+        out = self._logits(one, {m: x[None] for m, x in inputs.items()},
+                           None, False)
+        return {m: lg[0] for m, lg in out.items()}
+
+
 def make_adapter(dataset_name: str, arch: str = "lstm-cnn",
-                 **kw) -> ModelAdapter:
-    """Adapter for one point of the architecture axis; this slice of the
-    port carries the paper's ``"lstm-cnn"`` submodels only."""
+                 use_kernels: bool = False, **kw) -> ModelAdapter:
+    """Adapter for one point of the architecture axis (``FL_ARCHS``)."""
     if arch == "lstm-cnn":
         return PaperModelAdapter(dataset_name, **kw)
-    if arch in ("transformer", "ssd"):
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; it is ROADMAP.md Queue 1 "
-            f"item 8 (the backbone slice)")
-    raise ValueError(f"unknown arch {arch!r}")
+    if arch not in FL_ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; choose from {FL_ARCHS}")
+    return BackboneAdapter(dataset_name, arch=arch, use_kernels=use_kernels,
+                           **kw)

@@ -20,12 +20,14 @@ zeroes the loss — hence the gradient — of everything that is not uploaded.
 Unscheduled clients still run in the stack with avail = 0.
 
 The engine spec keeps the JAX package's grammar,
-``"<loop>[:<token>[+<token>...]]"``.  This slice of the port runs the
-``batched`` loop with the ``seq`` JCSBA solver, and the ``pallas`` token
-selects the CUDA fusion-loss kernel; the default is
-``"batched:seq+pallas"``.  The run consumes the experiment's numpy
-``Generator`` in the JAX package's order — channel draw, K client seeds,
-immune search — so participants match the JAX package round by round.
+``"<loop>[:<token>[+<token>...]]"``.  The port runs the ``batched`` loop
+with the ``seq`` JCSBA solver; the ``pallas`` token selects the CUDA
+fusion-loss kernel and, for the transformer/SSD backbones (``arch=``), the
+flash-attention / SSD kernels in their mixers; ``remat`` checkpoints the
+cohort forward.  The default is ``"batched:seq+pallas"``.  The run
+consumes the experiment's numpy ``Generator`` in the JAX package's order —
+channel draw, K client seeds, immune search — so participants match the
+JAX package round by round.
 """
 from __future__ import annotations
 
@@ -75,10 +77,9 @@ ENGINE_LOOPS = ("seq", "batched", "fused")
 #: valid "+"-joined engine-spec tokens after the ":"
 ENGINE_TOKENS = ("jax", "np", "seq", "pallas", "remat")
 
-#: the loops and tokens this slice does not run yet, and where they are queued
+#: the loops the port does not run yet, and where they are queued
 _QUEUED = {"seq": "ROADMAP.md Queue 1 item 6 (the seq loop)",
-           "fused": "ROADMAP.md Queue 1 item 7 (fused_round.py)",
-           "remat": "ROADMAP.md Queue 1 item 8 (the backbone slice)"}
+           "fused": "ROADMAP.md Queue 1 item 7 (fused_round.py)"}
 
 
 def parse_engine(engine: str):
@@ -120,13 +121,12 @@ class MFLExperiment:
                  eval_every: int = 1, engine: str = "batched:seq+pallas",
                  arch: str = "lstm-cnn", device="cuda"):
         self.device = resolve_device(device)
-        (loop, solver_backend, loss_backend, remat, _use_kernels,
+        (loop, solver_backend, loss_backend, remat, use_kernels,
          self.engine) = parse_engine(engine)
-        for what in (loop, "remat" if remat else None):
-            if what in _QUEUED:
-                raise NotImplementedError(
-                    f"engine {engine!r}: {what!r} is not ported yet; it is "
-                    f"{_QUEUED[what]}")
+        if loop in _QUEUED:
+            raise NotImplementedError(
+                f"engine {engine!r}: {loop!r} is not ported yet; it is "
+                f"{_QUEUED[loop]}")
         self.rng = np.random.default_rng(seed)
         self.params = params or WirelessParams(K=K)
         self.eval_every = eval_every
@@ -143,7 +143,8 @@ class MFLExperiment:
         self.profile = MODALITY_PROFILES[dataset]
 
         self.adapter = make_adapter(dataset, arch, eta=eta,
-                                    loss_backend=loss_backend)
+                                    loss_backend=loss_backend, remat=remat,
+                                    use_kernels=use_kernels)
         self.global_params = self.adapter.init_global(
             torch.Generator().manual_seed(seed), self.device)
         self.init_params = tree_map(torch.clone, self.global_params)

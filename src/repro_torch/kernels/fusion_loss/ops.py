@@ -25,6 +25,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from ..nvcc import check as _check
 from . import ref
 
 MAX_M = 4
@@ -71,11 +72,6 @@ def _kernel_operands(logits, labels, avail, seg):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _check(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
 def _launch_fwd(lgs, labels, avail, seg, shape):

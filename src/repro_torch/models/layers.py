@@ -1,0 +1,250 @@
+"""Transformer building blocks on per-client stacks: RMSNorm, RoPE, GQA
+attention, SwiGLU MLP.
+
+Every parameter leaf carries a leading cohort axis K and every activation
+is [K, B, ...]: projections are batched products over K (``kmm``), stored
+``[d_in, d_out]`` and applied as ``x @ w`` as in the JAX package, so
+parameter trees cross between the packages without a reshuffle.  The
+attention contraction carries no weights, so it flattens K·B into one batch
+axis.
+
+``chunked_attention`` is the plain path (query chunks, online softmax in
+f32, never the S×S matrix across chunks); ``pallas_attention`` keeps the JAX
+package's name for the kernel path: the hand-written flash-attention kernel
+(``kernels/flash_attention``) forward, with a backward that recomputes
+``chunked_attention`` — the kernel has no backward, as the TPU kernel has
+none.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import ops as fa_ops
+from .config import ModelConfig
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------------------
+# basics
+# ----------------------------------------------------------------------------
+def per_client(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-client [K, ..., d] leaf viewed to broadcast against an
+    activation [K, B, ..., d] of more axes."""
+    return v.reshape(v.shape[0], *([1] * (x.dim() - v.dim())),
+                     *v.shape[1:])
+
+
+def kmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [K, ..., d_in] @ w [K, d_in, d_out] -> [K, ..., d_out]."""
+    K = x.shape[0]
+    y = torch.bmm(x.reshape(K, -1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the ``1 + scale`` form (zero-initialised scales), f32
+    inside; ``scale`` is per client [K, d]."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps) * (1.0 + per_client(scale, x).float())
+    return y.to(x.dtype)
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype):
+    return {"w": (torch.randn((d_in, d_out), generator=gen)
+                  / math.sqrt(d_in)).to(dtype)}
+
+
+def dense(p, x):
+    """x @ w (+ b) per client: ``p["w"]`` [K, d_in, d_out], optional
+    ``p["b"]`` [K, d_out]."""
+    y = kmm(x, p["w"])
+    if "b" in p:
+        y = y + per_client(p["b"], y)
+    return y
+
+
+# ----------------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------------
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Half-split RoPE.  x: [..., S, N, hd]; positions: [S] (or any shape
+    that broadcasts against x's [..., S])."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq                  # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# attention parameters
+# ----------------------------------------------------------------------------
+def init_attention(gen: torch.Generator, cfg: ModelConfig):
+    hd, H, K, D = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    dt = cfg.param_dtype
+    return {
+        "wq": init_dense(gen, D, H * hd, dt),
+        "wk": init_dense(gen, D, K * hd, dt),
+        "wv": init_dense(gen, D, K * hd, dt),
+        "wo": init_dense(gen, H * hd, D, dt),
+    }
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    """x [K, B, S, D] -> q [K·B, S, H, hd], k/v [K·B, S, KH, hd]."""
+    K, B, S, _ = x.shape
+    hd, H, KH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = dense(p["wq"], x).reshape(K, B, S, H, hd)
+    k = dense(p["wk"], x).reshape(K, B, S, KH, hd)
+    v = dense(p["wv"], x).reshape(K, B, S, KH, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return (q.reshape(K * B, S, H, hd), k.reshape(K * B, S, KH, hd),
+            v.reshape(K * B, S, KH, hd))
+
+
+# ----------------------------------------------------------------------------
+# chunked attention (the plain path; never the S x S matrix across chunks)
+# ----------------------------------------------------------------------------
+def _attn_chunk(q, k, v, mask, scale):
+    """q: [B,G,R,Cq,hd]  k/v: [B,G,Sk,hd]  mask: [Cq,Sk] -> [B,G,R,Cq,hd].
+
+    G = kv head groups, R = q heads per kv head.  f32 softmax."""
+    s = torch.einsum("bgrqh,bgkh->bgrqk", q, k).float() * scale
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    z = e.sum(dim=-1, keepdim=True)
+    return torch.einsum("bgrqk,bgkh->bgrqh",
+                        (e / torch.clamp_min(z, 1e-30)).to(v.dtype), v)
+
+
+def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024):
+    """Causal (optionally sliding-window) attention, queries and keys at
+    the same positions.
+
+    q: [B, S, H, hd], k/v: [B, S, KH, hd].  Returns [B, S, H, hd]."""
+    B, Sq, H, hd = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    R = H // KH
+    scale = 1.0 / math.sqrt(hd)
+    chunk = min(chunk, Sq)
+    while Sq % chunk:               # self-adjust to a divisor of Sq
+        chunk //= 2
+    dev = q.device
+
+    qg = q.reshape(B, Sq, KH, R, hd).permute(0, 2, 3, 1, 4)   # [B,KH,R,Sq,hd]
+    kg = k.permute(0, 2, 1, 3)                                 # [B,KH,Sk,hd]
+    vg = v.permute(0, 2, 1, 3)
+    outs = []
+    if window is None:
+        # each q chunk sees keys [0, t0 + chunk)
+        kpos = torch.arange(Sk, device=dev)
+        for t0 in range(0, Sq, chunk):
+            qpos = t0 + torch.arange(chunk, device=dev)
+            mask = kpos[None, :] <= qpos[:, None]
+            outs.append(_attn_chunk(qg[:, :, :, t0:t0 + chunk], kg, vg, mask,
+                                    scale))
+    else:
+        # sliding window: q chunk [t0, t0+chunk) sees keys
+        # [t0-window+1, t0+chunk)
+        w = window
+        kp = F.pad(kg, (0, 0, w, 0))
+        vp = F.pad(vg, (0, 0, w, 0))
+        span = w + chunk
+        for t0 in range(0, Sq, chunk):
+            qpos = t0 + torch.arange(chunk, device=dev)
+            kpos = t0 - w + torch.arange(span, device=dev)
+            mask = ((kpos[None, :] <= qpos[:, None])
+                    & (kpos[None, :] > qpos[:, None] - w)
+                    & (kpos[None, :] >= 0))
+            outs.append(_attn_chunk(qg[:, :, :, t0:t0 + chunk],
+                                    kp[:, :, t0:t0 + span],
+                                    vp[:, :, t0:t0 + span], mask, scale))
+    out = torch.cat(outs, dim=3)                               # [B,KH,R,Sq,hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+# ----------------------------------------------------------------------------
+# the kernel path: kernel forward, plain recompute backward
+# ----------------------------------------------------------------------------
+class _PallasAttention(torch.autograd.Function):
+    """Causal attention through the flash-attention kernel; the backward
+    replays ``chunked_attention`` under autograd, as the JAX custom VJP
+    replays it under ``jax.vjp`` — the kernel has no backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, chunk):
+        ctx.window, ctx.chunk = window, chunk
+        ctx.save_for_backward(q, k, v)
+        return fa_ops.flash_attention(q, k, v, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            o = chunked_attention(*ins, window=ctx.window, chunk=ctx.chunk)
+        return (*torch.autograd.grad(o, ins, g), None, None)
+
+
+def pallas_attention(q, k, v, window: Optional[int], chunk: int):
+    """Causal attention via the flash-attention kernel; layouts as
+    ``chunked_attention`` (q [B,Sq,H,hd], k/v [B,Sk,KH,hd])."""
+    return _PallasAttention.apply(q, k, v, window, chunk)
+
+
+def attention_prefill(p, x, cfg: ModelConfig, *, window: Optional[int],
+                      positions=None, chunk: int = 1024, impl: str = "xla"):
+    """Attention layer that also exports the post-RoPE K/V.  x [K, B, S, D]
+    -> (y [K, B, S, D], k/v [K·B, S, KH, hd]).  ``impl="pallas"`` routes the
+    score/softmax/value contraction through the flash-attention kernel;
+    ``"xla"`` (the JAX package's name for the plain path) through
+    ``chunked_attention``."""
+    K, B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if impl == "pallas":
+        o = pallas_attention(q, k, v, window, min(chunk, S))
+    else:
+        o = chunked_attention(q, k, v, window=window, chunk=min(chunk, S))
+    return dense(p["wo"], o.reshape(K, B, S, cfg.n_heads * cfg.hd)), k, v
+
+
+def attention_fwd(p, x, cfg: ModelConfig, *, window: Optional[int],
+                  positions=None, chunk: int = 1024, impl: str = "xla"):
+    """Attention layer.  x: [K, B, S, D] -> [K, B, S, D]."""
+    y, _, _ = attention_prefill(p, x, cfg, window=window, positions=positions,
+                                chunk=chunk, impl=impl)
+    return y
+
+
+# ----------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ----------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None):
+    d_ff = d_ff or cfg.d_ff
+    dt = cfg.param_dtype
+    return {
+        "wg": init_dense(gen, cfg.d_model, d_ff, dt),
+        "wu": init_dense(gen, cfg.d_model, d_ff, dt),
+        "wd": init_dense(gen, d_ff, cfg.d_model, dt),
+    }
+
+
+def mlp(p, x):
+    return dense(p["wd"], F.silu(dense(p["wg"], x)) * dense(p["wu"], x))

@@ -1,0 +1,172 @@
+"""Mamba2 (SSD — state-space duality, arXiv:2405.21060) on per-client
+stacks.
+
+Train/prefill uses the chunked SSD algorithm: an intra-chunk attention-like
+contraction plus an inter-chunk recurrence over the chunk states.
+``ssd_chunked`` is the plain path; ``ssd_pallas`` keeps the JAX package's
+name for the kernel path: the hand-written SSD intra-chunk kernel
+(``kernels/ssd_scan``) forward, with a backward that recomputes
+``ssd_chunked`` — the kernel has no backward, as the TPU kernel has none.
+
+Parameters carry a leading cohort axis K (``wz`` [K, D, d_inner], ...),
+with the JAX package's leaf names; the z/x/B/C/dt projections stay separate
+arrays, as there.  The SSD contraction carries no weights, so it flattens
+K·B into one batch axis, with the per-client ``A`` repeated per row.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd_scan import ops as ssd_ops
+from .config import ModelConfig
+from .layers import kmm, per_client, rms_norm
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig):
+    D, di, N, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads
+    dt = cfg.param_dtype
+
+    def proj(d_in, d_out):
+        return (torch.randn((d_in, d_out), generator=gen)
+                / math.sqrt(d_in)).to(dt)
+
+    def shift(n):                   # identity conv: the last tap is 1
+        w = torch.zeros((cfg.ssm_conv, n), dtype=dt)
+        w[-1] = 1.0
+        return w
+
+    return {
+        "wz": proj(D, di),
+        "wx": proj(D, di),
+        "wB": proj(D, N),
+        "wC": proj(D, N),
+        "wdt": proj(D, nh),
+        "conv_x": (torch.randn((cfg.ssm_conv, di), generator=gen)
+                   * 0.1).to(dt),
+        "conv_B": shift(N),
+        "conv_C": shift(N),
+        "conv_bx": torch.zeros((di,), dtype=dt),
+        "dt_bias": torch.zeros((nh,), dtype=torch.float32),
+        "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32)),
+        "D": torch.ones((nh,), dtype=torch.float32),
+        "norm": torch.zeros((di,), dtype=dt),
+        "out_proj": proj(di, D),
+    }
+
+
+def _causal_conv(x, w, b=None):
+    """Depthwise causal conv over S with a left zero pad, then silu.
+    x: [K, B, S, C], w: [K, taps, C], b: [K, C]."""
+    taps, S = w.shape[1], x.shape[2]
+    xp = F.pad(x, (0, 0, taps - 1, 0))
+    out = sum(xp[:, :, i:i + S, :] * w[:, None, None, i, :]
+              for i in range(taps))
+    if b is not None:
+        out = out + per_client(b, out)
+    return F.silu(out)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
+    """Chunked SSD, the plain path.
+
+    x:  [B, S, nh, hp]   (conv'd + silu'd input)
+    dt: [B, S, nh]       (post-softplus step sizes, fp32)
+    A:  [nh] or per batch row [B, nh] (negative, fp32)
+    Bm: [B, S, N], Cm: [B, S, N]
+    Returns y: [B, S, nh, hp] in x's type.
+    """
+    Bsz, S, nh, hp = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"chunk {Q} does not divide S={S}")
+    nc = S // Q
+    xd = x.float() * dt[..., None]                                # dt-weighted
+    dtA = dt * A.unsqueeze(-2)                                    # [B,S,nh]
+
+    xc = xd.reshape(Bsz, nc, Q, nh, hp)
+    dAc = dtA.reshape(Bsz, nc, Q, nh)
+    Bc = Bm.float().reshape(Bsz, nc, Q, N)
+    Cc = Cm.float().reshape(Bsz, nc, Q, N)
+
+    # --- intra-chunk (diagonal blocks) ---
+    cum = torch.cumsum(dAc, dim=2)                                # [B,nc,Q,nh]
+    # decay matrix L[t,s] = exp(cum_t - cum_s), lower-triangular.  Mask the
+    # EXPONENT (not the exp): upper-triangle diffs are large and positive,
+    # exp overflows to inf, and 0*inf poisons the backward pass.
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # [B,nc,Q,Q,nh]
+    tri = torch.ones((Q, Q), dtype=torch.bool,
+                     device=x.device).tril()[None, None, :, :, None]
+    Lmat = torch.exp(torch.where(tri, diff, -torch.inf))
+    scores = torch.einsum("bctn,bcsn->bcts", Cc, Bc)              # [B,nc,Q,Q]
+    y_diag = torch.einsum("bctsh,bcts,bcshp->bcthp", Lmat, scores, xc)
+
+    # --- chunk summary states: S_c = Σ_s exp(cum_last − cum_s) B_s x_s^T ---
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)             # [B,nc,Q,nh]
+    states = torch.einsum("bcsn,bcsh,bcshp->bchnp", Bc, decay_to_end, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                     # [B,nc,nh]
+
+    # --- inter-chunk recurrence ---
+    h = x.new_zeros((Bsz, nh, N, hp), dtype=torch.float32)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                           # [B,nc,nh,N,hp]
+
+    # --- inter-chunk contribution: y_off[t] = C_t · (exp(cum_t) * h_prev) ---
+    in_decay = torch.exp(cum)                                     # [B,nc,Q,nh]
+    y_off = torch.einsum("bctn,bcth,bchnp->bcthp", Cc, in_decay, h_prev)
+    return (y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype)
+
+
+class _SSDPallas(torch.autograd.Function):
+    """Chunked SSD through the intra-chunk kernel; the backward replays
+    ``ssd_chunked`` under autograd, as the JAX custom VJP replays it under
+    ``jax.vjp`` — the kernel has no backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return ssd_ops.ssd_forward(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = ssd_chunked(*ins, ctx.chunk)
+        return (*torch.autograd.grad(y, ins, g), None)
+
+
+def ssd_pallas(x, dt, A, Bm, Cm, chunk: int):
+    """Same contract as ``ssd_chunked``, through the kernel."""
+    return _SSDPallas.apply(x, dt, A, Bm, Cm, chunk)
+
+
+def mamba_fwd(p, u, cfg: ModelConfig, *, impl: str = "xla"):
+    """u: [K, B, S, D] -> [K, B, S, D].  ``impl="pallas"`` routes the
+    chunked-SSD contraction through the kernel (``ssd_pallas``), ``"xla"``
+    (the JAX package's name for the plain path) through ``ssd_chunked``."""
+    K, B, S, D = u.shape
+    nh, hp = cfg.ssm_n_heads, cfg.ssm_head_dim
+    z = kmm(u, p["wz"])
+    x = _causal_conv(kmm(u, p["wx"]), p["conv_x"], p["conv_bx"])
+    Bm = _causal_conv(kmm(u, p["wB"]), p["conv_B"])
+    Cm = _causal_conv(kmm(u, p["wC"]), p["conv_C"])
+    a = kmm(u, p["wdt"]).float() + per_client(p["dt_bias"], u)
+    dt = torch.logaddexp(a, torch.zeros_like(a))                  # softplus
+    A = -torch.exp(p["A_log"])                                    # [K, nh]
+    xh = x.reshape(K * B, S, nh, hp)
+    ssd = ssd_pallas if impl == "pallas" else ssd_chunked
+    y = ssd(xh, dt.reshape(K * B, S, nh), A.repeat_interleave(B, dim=0),
+            Bm.reshape(K * B, S, -1), Cm.reshape(K * B, S, -1),
+            cfg.ssm_chunk)
+    y = (y + xh * p["D"].repeat_interleave(B, dim=0)[:, None, :, None]
+         .to(x.dtype))
+    y = y.reshape(K, B, S, cfg.d_inner)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return kmm(y, p["out_proj"])

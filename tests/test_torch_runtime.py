@@ -87,9 +87,9 @@ def test_parse_engine_rejects_like_jax(spec):
     dict(engine="batched:np"),
     dict(engine="seq:seq"),
     dict(engine="fused:seq"),
-    dict(engine="batched:seq+remat"),
+    dict(engine="batched:seq", scheduler="round_robin"),
     dict(engine="batched:seq", scheduler="random"),
-    dict(engine="batched:seq", arch="transformer"),
+    dict(engine="batched:seq", scheduler="selection"),
 ])
 def test_unported_pieces_refuse(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
