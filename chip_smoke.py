@@ -52,10 +52,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 FLOP/s
-#: outside the tensor cores — the kernels' bound is max(bytes, operations)
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
+#: outside the tensor cores and dense bfloat16 FLOP/s on them — a kernel's
+#: bound is max(bytes, operations at the peak for its operands' type)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 DEVICE = "cuda"
 
 #: where the TPU kernels this port replaces live in the JAX package
@@ -104,11 +106,14 @@ TOL_SSD = dict(rtol=1e-4, atol=1e-4)
 TOL_GRAD = dict(rtol=1e-5, atol=1e-5)
 
 #: the JAX package's kernel sweeps (tests/test_kernels.py): attention
-#: (B, H, KH, S, hd, window) and SSD chunks (B, nc, Q, nh, hp, N)
+#: (B, H, KH, S, hd, window) and SSD chunks (B, nc, Q, nh, hp, N), with
+#: the JAX configs' chunk (src/repro/models/config.py ssm_chunk = 256)
 ATTN_SWEEP = ((1, 4, 2, 128, 64, None), (2, 4, 4, 256, 32, None),
               (1, 8, 2, 256, 64, 64), (1, 2, 1, 512, 128, 128))
 SSD_SWEEP = ((1, 2, 64, 2, 32, 16), (2, 4, 32, 4, 16, 8),
-             (1, 1, 128, 8, 64, 32))
+             (1, 1, 128, 8, 64, 32),
+             # the JAX configs' 256-token chunk: mamba2-370m and jamba
+             (1, 1, 256, 2, 64, 128), (1, 1, 256, 2, 64, 16))
 
 
 def gpu_line() -> str:
@@ -140,10 +145,10 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def device_ms(torch, fn, kernel=None, iters: int = 50):
-    """Mean device time from ``torch.profiler``: of ``kernel`` per launch,
-    or, for ``kernel=None``, of everything one call of ``fn`` runs on the
-    device; None when the trace shows no device time."""
+def device_ms(torch, fn, iters: int = 50):
+    """Mean device time of one call of ``fn`` from ``torch.profiler``: every
+    kernel (and copy) the calls run on the device, summed, over the number
+    of calls; None when the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -151,23 +156,15 @@ def device_ms(torch, fn, kernel=None, iters: int = 50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    if kernel is None:
-        cuda = torch.autograd.DeviceType.CUDA
-        total = sum(_device_us(e) for e in prof.key_averages()
-                    if getattr(e, "device_type", None) == cuda)
-        return total / iters / 1e3 if total else None
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total = (getattr(evt, "device_time_total", 0)
-                     or getattr(evt, "cuda_time_total", 0))
-            if total and evt.count:
-                return total / evt.count / 1e3          # us -> ms
-    return None
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if getattr(e, "device_type", None) == cuda)
+    return total / iters / 1e3 if total else None
 
 
-def bound(bytes_ops):
+def bound(bytes_ops, peak_flops=PEAK_F32_FLOPS):
     nbytes, ops = bytes_ops
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / peak_flops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -402,21 +399,28 @@ def capture_backbone_operands(torch, exps):
 
 
 def attn_case(torch, q, k, v, window, label, dtype=None):
-    """q [B,S,H,hd], k/v [B,S,KH,hd] on the card (the model's layout)."""
+    """q [B,S,H,hd], k/v [B,S,KH,hd] on the card (the model's layout), with
+    the regime the wrapper plans for them."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     if dtype is not None:
         q, k, v = (t.to(dtype) for t in (q, k, v))
     B, S, H, hd = q.shape
-    return dict(q=q, k=k, v=v, window=window, label=label,
-                shape=f"B={B} S={S} H={H} KH={k.shape[2]} hd={hd}"
+    KH = k.shape[2]
+    regime = fa_ops.plan(B, S, H, KH, hd, q.dtype,
+                         fa_ops.aligned16((q, k, v), hd)).regime
+    return dict(q=q, k=k, v=v, window=window, label=label, regime=regime,
+                shape=f"B={B} S={S} H={H} KH={KH} hd={hd}"
                       + (f" window={window}" if window else "")
                       + ("" if q.dtype == torch.float32 else " bf16"))
 
 
 def ssd_case(x, cum, Bm, Cm, label):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     B, nc, Q, nh, hp = x.shape
+    N = Bm.shape[-1]
     return dict(x=x, cum=cum, Bm=Bm, Cm=Cm, label=label,
-                shape=f"B={B} nc={nc} Q={Q} nh={nh} hp={hp} "
-                      f"N={Bm.shape[-1]}")
+                regime=ssd_ops.plan(B, nc, Q, nh, hp, N).regime,
+                shape=f"B={B} nc={nc} Q={Q} nh={nh} hp={hp} N={N}")
 
 
 def backbone_cases(torch, found):
@@ -459,7 +463,8 @@ def backbone_kernel_phase(torch, found):
     attn, ssd = backbone_cases(torch, found)
     errs = {"flash_attention_fwd": [], "ssd_chunk_fwd": []}
     for c in attn:
-        print(f"[kernels] flash_attention {c['label']}: {c['shape']}")
+        print(f"[kernels] flash_attention {c['label']}: {c['shape']} "
+              f"({c['regime']} regime)")
         q, k, v, win = c["q"], c["k"], c["v"], c["window"]
         out = fa_ops.flash_attention(q, k, v, window=win)
         torch.cuda.synchronize()
@@ -473,7 +478,8 @@ def backbone_kernel_phase(torch, found):
             check(torch, f"fwd vs {tag}", out.float(), want, tol,
                   errs["flash_attention_fwd"] if f32 and not dtype else [])
     for c in ssd:
-        print(f"[kernels] ssd_chunk {c['label']}: {c['shape']}")
+        print(f"[kernels] ssd_chunk {c['label']}: {c['shape']} "
+              f"({c['regime']} regime)")
         ins = (c["x"], c["cum"], c["Bm"], c["Cm"])
         y, st = ssd_ops.ssd_chunk(*ins)
         torch.cuda.synchronize()
@@ -644,36 +650,41 @@ def timing_phase(torch, ops, ref, cases):
                 lambda: ops._launch_fwd(lgs, lab, av, c["seg"], shape),
                 lambda: ref.fusion_loss_ref(stack, lab, av,
                                             save_residuals=True),
-                None, "fusion_fwd_kernel"),
+                None),
             "fusion_loss_bwd": (
                 lambda: ops._launch_bwd(lgs, lab, av, df, dm, out[3],
                                         out[5], c["seg"], shape, False),
                 lambda: ref.fusion_loss_ref_grads(stack, lab, av, df, dm),
-                None, "fusion_bwd_kernel"),
+                None),
             "fusion_loss_reduce": (
                 lambda: ops._launch_reduce(partials),
                 lambda: partials.sum(dim=1),
-                lambda: partials.sum(dim=1), "fusion_partials_reduce"),
+                lambda: partials.sum(dim=1)),
         }
         w = work(c, load().fusion_loss_bwd_blocks(shape[1]))
         K, T, V, M = c["shape"]
         shape_txt = (f"K={K} T={T} V={V} M={M}"
                      + (f" seg={c['seg']}" if any(c["seg"]) else ""))
         rows = {}
-        for name, (kern, plain, lib, kname) in calls.items():
+        for name, (kern, plain, lib) in calls.items():
             lib_txt = ("partials.sum(dim=1)" if lib else
                        "none: no single PyTorch call computes this function")
             rows[name] = time_row(torch, name, label, shape_txt, kern, plain,
-                                  lib, lib_txt, w[name], kname)
+                                  lib, lib_txt, w[name])
         per_shape[label] = rows
     return per_shape
 
 
 def time_row(torch, name, label, shape_txt, kern, plain, lib, lib_txt,
-             work_, kname):
-    b_ms, b_by = bound(work_)
+             work_, regime=None, peak_flops=PEAK_F32_FLOPS):
+    """``device_ms`` is every device kernel one call of the wrapper
+    launches, summed (a call of a kernel in two launches is charged for
+    both)."""
+    b_ms, b_by = bound(work_, peak_flops)
+    if regime:
+        shape_txt = f"{shape_txt} ({regime})"
     row = {"ms": time_ms(torch, kern),
-           "device_ms": device_ms(torch, kern, kname),
+           "device_ms": device_ms(torch, kern),
            "plain_ms": time_ms(torch, plain, iters=20, warmup=3),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": (time_ms(torch, lib) if lib else None),
@@ -706,16 +717,18 @@ def attn_work(c):
 
 def ssd_work(c):
     """(bytes, operations) of one SSD chunk call: x, cum, B, C read once,
-    y_diag and the states written once; per (batch, chunk, head) the
-    lower-triangle scores (2N + 2 each: dot, exp, product), W·x over the
-    triangle and the state product (3 per term)."""
+    y_diag and the states written once.  Per (batch, chunk) the lower
+    triangle of C·Bᵀ, 2N a pair (the scores do not depend on the head);
+    per head the decay on it (exp and product, 2 a pair), W·x over the
+    triangle (2·hp a pair), the decay to the chunk's end (Q exps), x
+    scaled by it (Q·hp) and the state product Bᵀ·(decay ∘ x) (2·Q·N·hp)."""
     B, nc, Q, nh, hp = c["x"].shape
     N = c["Bm"].shape[-1]
     nbytes = 4 * (2 * c["x"].numel() + c["cum"].numel()
                   + 2 * c["Bm"].numel() + B * nc * nh * N * hp)
     tri = Q * (Q + 1) // 2
-    per = tri * (2 * N + 2) + tri * 2 * hp + Q * N * hp * 3 + Q
-    return nbytes, B * nc * nh * per
+    head = tri * 2 + tri * 2 * hp + Q + Q * hp + 2 * Q * N * hp
+    return nbytes, B * nc * (tri * 2 * N + nh * head)
 
 
 def backbone_timing_phase(torch, attn, ssd):
@@ -744,7 +757,8 @@ def backbone_timing_phase(torch, attn, ssd):
             lambda: fa_ref.attention_ref(tq, tk, tv, window=win), lib,
             "F.scaled_dot_product_attention(is_causal=True)" if lib else
             "none: SDPA takes no sliding window",
-            attn_work(c), "flash_attention_fwd_kernel"))
+            attn_work(c), c["regime"],
+            PEAK_F32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS))
     for c in ssd:
         ins = (c["x"], c["cum"], c["Bm"], c["Cm"])
         rows["ssd_chunk_fwd"].append(time_row(
@@ -752,7 +766,7 @@ def backbone_timing_phase(torch, attn, ssd):
             lambda: ssd_ops._launch(*ins),
             lambda: ssd_ref.ssd_chunk_ref(*ins), None,
             "none: no single PyTorch call computes this function",
-            ssd_work(c), "ssd_chunk_fwd_kernel"))
+            ssd_work(c), c["regime"]))
     return rows
 
 

@@ -11,8 +11,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = CudaLibrary(Path(__file__).resolve().parent / "csrc"
                       / "flash_attention.cu", {
     # q, k, v, o, 12 element strides (b, s, h of q, k, v, o), dtype, B, H,
-    # KH, S, hd, window, stream
-    "flash_attention_fwd": [_P] * 4 + [_L] * 12 + [_I] * 7 + [_P],
+    # KH, S, hd, window, regime, heads per block (short) or key splits
+    # (long), row groups and key tile (long), stream
+    "flash_attention_fwd": [_P] * 4 + [_L] * 12 + [_I] * 11 + [_P],
+    # regime, dtype, S, hd, heads per block or key splits, H / KH, key tile
+    "flash_attention_smem_bytes": [_I] * 7,
 })
 build = LIBRARY.build
 load = LIBRARY.load

@@ -10,9 +10,11 @@ from ..nvcc import CudaLibrary
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(Path(__file__).resolve().parent / "csrc"
                       / "ssd_scan.cu", {
-    # x, cum, B, C, y_diag, states, Bsz, nc, Q, nh, hp, N, stream
-    "ssd_chunk_fwd": [_P] * 6 + [_I] * 6 + [_P],
-    "ssd_chunk_smem_bytes": [_I] * 3,
+    # x, cum, B, C, y_diag, states, Bsz, nc, Q, nh, hp, N, regime, group,
+    # stream
+    "ssd_chunk_fwd": [_P] * 6 + [_I] * 8 + [_P],
+    # regime, group, Q, nh, hp, N
+    "ssd_chunk_smem_bytes": [_I] * 6,
     "ssd_chunk_max_smem_bytes": [],
 })
 build = LIBRARY.build

@@ -2,18 +2,126 @@
 
 ``ssd_chunk(x, cum, Bm, Cm)`` runs one kernel launch on CUDA tensors and the
 plain version (``ref.py``) on CPU tensors, and nothing else — a CUDA shape
-the kernel cannot take raises.  ``ssd_forward`` has the contract of
-``models.mamba2.ssd_chunked``: the kernel gives the intra-chunk term and the
-chunk states; the O(S/chunk) inter-chunk recurrence and the off-diagonal
-term stay plain torch, as in the JAX package.  The kernel wrapper counts
-its launches (``launch_counts()``).
+the kernel cannot take raises.  ``plan`` picks the kernel's regime from the
+shapes (small chunks: all heads of a group of chunks per block; large
+chunks: tiles of 64 query rows and of N by up to 128 of the hp columns, the
+keys streamed), here in Python so that the choice is testable without a
+card; the C side checks it again.
+``ssd_forward`` has the contract of ``models.mamba2.ssd_chunked``: the
+kernel gives the intra-chunk term and the chunk states; the O(S/chunk)
+inter-chunk recurrence and the off-diagonal term stay plain torch, as in
+the JAX package.  The kernel wrapper counts its launches
+(``launch_counts()``).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from ..nvcc import check
 from . import ref
+
+#: H100 limits the plan keeps to: shared memory a block may use, blocks in
+#: a grid's x dimension, streaming multiprocessors
+MAX_SMEM = 232448
+MAX_BLOCKS = 2 ** 31 - 1
+SM_COUNT = 132
+#: small regime: chunks up to 32 rows, 256 threads, at most 8 chunks and
+#: 48 KB a block, so that several blocks reside on each SM
+SMALL_MAX_Q = 32
+SMALL_THREADS = 256
+SMALL_MAX_GROUP = 8
+SMALL_GROUP_SMEM = 48 * 1024
+#: large regime: its query and key tiles; the hp columns go in tiles of
+#: 8, 16, 32, 64 or 128
+TQ, TS = 64, 32
+REGIMES = {"small": 0, "large": 1}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch: the regime, the chunks per block (small regime), the
+    block's threads, the grid's blocks and the block's shared memory."""
+    regime: str
+    group: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def _ru4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def small_smem(G: int, Q: int, nh: int, hp: int, N: int) -> int:
+    """Bytes of shared memory a small-regime block of G chunks needs (the
+    layout of ``ssd_small_kernel``)."""
+    return 4 * (_ru4(G * Q * nh * hp) + _ru4(G * Q * nh) + 2 * _ru4(G * Q * N)
+                + G * Q * Q + G * nh * Q + G * nh * (Q * Q + 1))
+
+
+def large_hp_tile(hp: int) -> int:
+    """The column tile HP of ``ssd_large_kernel<HP>`` for head dim hp: the
+    least of 8, 16, 32, 64, 128 that covers it, else 128."""
+    return min(128, max(8, 1 << (hp - 1).bit_length()))
+
+
+def large_layout(hp: int):
+    """(threads, state rows per block) of the large-regime kernel for hp."""
+    HP = large_hp_tile(hp)
+    rt = 4 if HP >= 64 else (2 if HP == 32 else 1)
+    ty = TQ // rt
+    return HP // 4 * ty, 4 * ty
+
+
+def large_smem(hp: int, N: int) -> int:
+    """Bytes of shared memory a large-regime block needs: the larger of a y
+    block (C tile, two B/x/cum stages, the score tile) and a state block
+    (two B/x/decay stages); N padded to a multiple of 4."""
+    HP, NT = large_hp_tile(hp), large_layout(hp)[1]
+    NP = _ru4(N) + 4
+    yb = TQ * NP + TQ + 2 * (TS * NP + TS * HP + TS) + TQ * (TS + 1)
+    sb = 2 * (TS * (NT + 4) + TS * HP + TS)
+    return 4 * max(yb, sb)
+
+
+def large_blocks(R: int, Q: int, nh: int, hp: int, N: int) -> int:
+    """Blocks of a large-regime launch: y blocks and state blocks for each
+    chunk, head and column tile."""
+    per = R * nh * -(-hp // large_hp_tile(hp))
+    return per * (-(-Q // TQ) + -(-N // large_layout(hp)[1]))
+
+
+def _large_takes(hp: int, N: int) -> bool:
+    return large_smem(hp, N) <= MAX_SMEM
+
+
+def plan(Bsz: int, nc: int, Q: int, nh: int, hp: int, N: int) -> Plan:
+    """The launch for x [Bsz, nc, Q, nh, hp] and B/C [.., N]; raises
+    ValueError for a shape no regime takes."""
+    R = Bsz * nc
+    # a few chunks of 16 rows or more spread wider as large-regime tiles
+    # (one block per chunk and head and tile) than as small-regime groups
+    few = Q >= 16 and R < SM_COUNT // 2
+    if Q <= SMALL_MAX_Q and not (few and _large_takes(hp, N)):
+        one = small_smem(1, Q, nh, hp, N)
+        if one <= MAX_SMEM:
+            G = max(1, min(SMALL_MAX_GROUP, R // (SM_COUNT * 8),
+                           SMALL_GROUP_SMEM // one))
+            blocks = -(-R // G)
+            if blocks <= MAX_BLOCKS:
+                return Plan("small", G, SMALL_THREADS, blocks,
+                            small_smem(G, Q, nh, hp, N))
+    blocks = large_blocks(R, Q, nh, hp, N)
+    if _large_takes(hp, N) and blocks <= MAX_BLOCKS:
+        return Plan("large", 1, large_layout(hp)[0], blocks,
+                    large_smem(hp, N))
+    raise ValueError(
+        f"the SSD chunk kernel takes no chunk of Q={Q}, nh={nh}, hp={hp}, "
+        f"N={N} at {R} chunks: it takes chunks of up to {SMALL_MAX_Q} rows "
+        f"whose heads fit {MAX_SMEM} bytes of shared memory, and any chunk "
+        f"whose 64-row tiles, with N padded to a multiple of 4, fit it")
 
 
 def _launch(x, cum, Bm, Cm):
@@ -33,14 +141,11 @@ def _launch(x, cum, Bm, Cm):
             raise ValueError(f"operands on {t.device} and {x.device}")
     Bsz, nc, Q, nh, hp = x.shape
     N = Bm.shape[-1]
+    p = plan(Bsz, nc, Q, nh, hp, N)
     lib = load()
-    need, room = lib.ssd_chunk_smem_bytes(Q, hp, N), \
-        lib.ssd_chunk_max_smem_bytes()
-    if need > room:
-        raise ValueError(f"chunk Q={Q}, hp={hp}, N={N} needs {need} bytes of "
-                         f"shared memory per block, more than the {room} a "
-                         f"block may use; use a smaller chunk")
-    x, cum, Bm, Cm = (t.contiguous() for t in (x, cum, Bm, Cm))
+    # 16-byte copies: a contiguous view at an odd offset is copied first
+    x, cum, Bm, Cm = (t.contiguous() if t.data_ptr() % 16 == 0
+                      else t.contiguous().clone() for t in (x, cum, Bm, Cm))
     y = torch.empty_like(x)
     st = torch.empty((Bsz, nc, nh, N, hp), dtype=torch.float32,
                      device=x.device)
@@ -50,6 +155,7 @@ def _launch(x, cum, Bm, Cm):
         rc = lib.ssd_chunk_fwd(
             x.data_ptr(), cum.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), st.data_ptr(), Bsz, nc, Q, nh, hp, N,
+            REGIMES[p.regime], p.group,
             torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "ssd_chunk_fwd")
     _launch.launches += 1

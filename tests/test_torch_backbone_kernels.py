@@ -133,6 +133,8 @@ def _ssd_chunk_inputs(seed, B, nc, Q, nh, hp, N):
     (3, 4, 8, 8, 8, 16),            # the training path, S = 32
     (2, 3, 8, 8, 8, 16),            # ... and S = 24
     (2, 4, 32, 4, 16, 8),           # the JAX sweep's middle case
+    (1, 1, 256, 2, 64, 128),        # the JAX configs' chunk: mamba2-370m
+    (1, 1, 256, 2, 64, 16),         # ... and jamba-v0.1-52b
 ])
 def test_ssd_chunk_plain_matches_pallas_and_ref(B, nc, Q, nh, hp, N):
     ins = _ssd_chunk_inputs(0, B, nc, Q, nh, hp, N)

@@ -144,6 +144,24 @@ ATTN_CARD_CASES = [
     (1, 2, 1, 512, 128, 128, torch.float32),
     (2, 4, 2, 100, 32, 17, torch.float32),
     (2, 4, 4, 256, 32, None, torch.bfloat16),
+    # the short regime's edges: ragged S, GQA with a window, hd 16 and 32,
+    # two warps a head (S=64), bfloat16
+    (7, 4, 4, 24, 8, None, torch.bfloat16),
+    (3, 8, 2, 48, 16, 5, torch.float32),
+    (5, 4, 2, 24, 16, None, torch.float32),
+    (5, 2, 2, 64, 32, None, torch.float32),
+    (3, 8, 2, 40, 32, 9, torch.bfloat16),
+    # the long regime's edges in bfloat16 (tensor cores): ragged S with GQA
+    # and a window, hd 128, S just past the short regime, 32-key tiles with
+    # four key splits (S=128); hd 16 in float32
+    (2, 4, 2, 100, 32, 17, torch.bfloat16),
+    (1, 2, 1, 512, 128, 128, torch.bfloat16),
+    (2, 8, 2, 65, 64, None, torch.bfloat16),
+    (1, 4, 2, 128, 64, None, torch.bfloat16),
+    (2, 4, 4, 130, 16, None, torch.float32),
+    # the generic regime: hd 8 past S=64, hd 256
+    (2, 4, 4, 200, 8, None, torch.float32),
+    (1, 2, 1, 96, 256, None, torch.bfloat16),
 ]
 
 
@@ -178,6 +196,21 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, H, KH, S, hd,
 @pytest.mark.parametrize("B,nc,Q,nh,hp,N", [
     (96, 4, 8, 8, 8, 16), (96, 3, 8, 8, 8, 16),       # the training path
     (1, 2, 64, 2, 32, 16), (2, 4, 32, 4, 16, 8), (1, 1, 128, 8, 64, 32),
+    # the JAX configs' chunk: mamba2-370m (N=128) and jamba (N=16)
+    (1, 1, 256, 2, 64, 128), (1, 1, 256, 2, 64, 16),
+    # small regime: a batch that is not a multiple of the block's group,
+    # hp not a multiple of 4, Q=32; large regime: ragged tiles (Q=96), hp
+    # 8 and 128, and a small chunk whose heads do not fit one block (the
+    # sweep's (2, 4, 32, ...) above runs there too: few chunks)
+    (961, 4, 8, 8, 8, 16), (3, 2, 16, 3, 6, 5), (32, 4, 32, 4, 16, 8),
+    (2, 2, 96, 2, 8, 12),
+    (1, 2, 64, 2, 128, 20), (1, 1, 32, 64, 64, 16),
+    # small regime with run-time divisors (hp 12, nh 3) and with powers of
+    # two at hp 2; large regime at hp and N not multiples of 4, hp 48 (a
+    # part-filled column tile) and hp 256 (two column tiles)
+    (50, 2, 16, 3, 12, 8), (40, 2, 16, 3, 6, 5), (80, 1, 8, 2, 2, 4),
+    (1, 1, 64, 2, 64, 6), (1, 2, 96, 3, 6, 5), (1, 1, 256, 2, 48, 16),
+    (1, 1, 64, 2, 256, 16),
 ])
 def test_ssd_chunk_kernel_matches_plain_on_card(cuda, B, nc, Q, nh, hp, N):
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -196,12 +229,43 @@ def test_ssd_chunk_kernel_matches_plain_on_card(cuda, B, nc, Q, nh, hp, N):
 
 
 @pytest.mark.gpu
-def test_ssd_chunk_kernel_refuses_a_chunk_too_large(cuda):
-    x = torch.zeros((1, 1, 256, 1, 64), device="cuda")
-    cum = torch.zeros((1, 1, 256, 1), device="cuda")
-    b = torch.zeros((1, 1, 256, 32), device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        ssd_ops.ssd_chunk(x, cum, b, b)
+def test_ssd_chunk_kernel_takes_a_256_token_chunk(cuda):
+    """The chunk an earlier kernel refused (its Q×Q scores outgrew a block's
+    shared memory) now goes through the large regime and matches the plain
+    version."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, 1, 256, 1, 64), device="cuda", generator=g)
+    cum = torch.cumsum(-torch.rand((1, 1, 256, 1), device="cuda",
+                                   generator=g) * 0.1, dim=2)
+    Bm, Cm = (torch.randn((1, 1, 256, 32), device="cuda", generator=g)
+              for _ in range(2))
+    assert ssd_ops.plan(1, 1, 256, 1, 64, 32).regime == "large"
+    y, st = ssd_ops.ssd_chunk(x, cum, Bm, Cm)
+    yw, sw = ssd_ref.ssd_chunk_ref(x, cum, Bm, Cm)
+    torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, sw, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_python_plans_match_the_kernels_shared_memory(cuda):
+    """The wrappers' shared-memory sizes (which decide the regime) equal
+    the C side's for every regime they plan."""
+    from repro_torch.kernels.flash_attention.build import load as fa_load
+    from repro_torch.kernels.ssd_scan.build import load as ssd_load
+    for B, nc, Q, nh, hp, N in [(960, 4, 8, 8, 8, 16), (240, 4, 8, 8, 8, 16),
+                                (1, 1, 256, 2, 64, 128),
+                                (1, 1, 128, 8, 64, 32), (3, 2, 16, 3, 6, 5),
+                                (40, 2, 16, 3, 6, 5), (1, 1, 64, 2, 256, 6)]:
+        p = ssd_ops.plan(B, nc, Q, nh, hp, N)
+        assert ssd_load().ssd_chunk_smem_bytes(
+            ssd_ops.REGIMES[p.regime], p.group, Q, nh, hp, N) == p.smem
+    for B, S, H, KH, hd in [(960, 32, 4, 4, 8), (3, 48, 8, 2, 16),
+                            (1, 512, 2, 1, 128), (2, 200, 4, 4, 8)]:
+        for dt, code in fa_ops._DTYPES.items():
+            p = fa_ops.plan(B, S, H, KH, hd, dt)
+            assert fa_load().flash_attention_smem_bytes(
+                fa_ops.REGIMES[p.regime], code, S, hd, p.c_arg,
+                H // KH, p.key_tile) == p.smem
 
 
 @pytest.mark.gpu
