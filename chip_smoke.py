@@ -14,9 +14,11 @@ Phases, each of which fails the run when it fails:
    every kernel against its plain PyTorch version on the card, in float32
    and float64:
    * the fusion loss at the shape each paper experiment's own client stack
-     gives it (labels, sample mask and modality ownership taken from it)
-     and at an LM-like shape with one broadcast head (K=1, T=512, V=32000,
-     M=3);
+     gives it (labels, sample mask and modality ownership taken from it),
+     at an LM-like shape with one broadcast head (K=1, T=512, V=32000,
+     M=3) and at the JAX package's fusion sweep (tests/test_kernels.py),
+     each of the last two in float32 and bfloat16; the Python plan's
+     shared memory held equal to the C side's;
    * flash attention and the SSD chunk kernel on the operands the backbone
      experiments' own forward passes hand them (captured from the client
      stacks and the test split), and at the JAX package's kernel-sweep
@@ -31,7 +33,8 @@ Phases, each of which fails the run when it fails:
    profile one paper, one transformer and one SSD round;
 4. time each kernel (CUDA events, after warm-up) beside its plain version,
    its bound and, where one PyTorch call computes the same function, that
-   call, at every shape of phase 2.
+   call, at every shape of phase 2; a ``[floor]`` line gives the device
+   time of a one-element ``add_``, the launch floor.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, without CUDA.
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
@@ -105,6 +108,8 @@ TOL_ATTN_BF16 = dict(rtol=3e-2, atol=3e-2)
 TOL_SSD = dict(rtol=1e-4, atol=1e-4)
 TOL_GRAD = dict(rtol=1e-5, atol=1e-5)
 
+#: the JAX package's fusion-loss sweep (tests/test_kernels.py): (M, T, V)
+FUSION_SWEEP = ((1, 128, 1024), (2, 256, 2048), (3, 64, 4096), (4, 128, 512))
 #: the JAX package's kernel sweeps (tests/test_kernels.py): attention
 #: (B, H, KH, S, hd, window) and SSD chunks (B, nc, Q, nh, hp, N), with
 #: the JAX configs' chunk (src/repro/models/config.py ssm_chunk = 256)
@@ -202,16 +207,17 @@ def build_phase():
 # ---------------------------------------------------------------------------
 # phase 2a: the fusion-loss kernels against their plain versions
 # ---------------------------------------------------------------------------
-def make_case(torch, labels, avail, mask, V, seg, seed):
+def make_case(torch, labels, avail, mask, V, seg, seed, dtype=None):
     """Cohort inputs on the card for labels [K, T] and avail [M, K, T]:
-    random logits (a broadcast head is [K, T/S, V]) and cotangents that are
-    zero on the rows the sample mask pads."""
+    random logits (a broadcast head is [K, T/S, V]; float32, or ``dtype``)
+    and cotangents that are zero on the rows the sample mask pads."""
     rng = np.random.default_rng(seed)
     K, T = labels.shape
     M = avail.shape[0]
     t = lambda x: torch.as_tensor(x, device=DEVICE)     # noqa: E731
     logits = [t((rng.normal(size=(K, T // s if s else T, V)) * 3.0)
-                .astype(np.float32)) for s in seg]
+                .astype(np.float32)).to(dtype or torch.float32)
+              for s in seg]
     d_fused = rng.normal(size=(K, T)).astype(np.float32) * mask
     d_modal = rng.normal(size=(M, K, T)).astype(np.float32) * mask
     return dict(logits=logits, labels=t(labels), avail=t(avail),
@@ -237,7 +243,7 @@ def path_case(torch, exp, seed):
                      (0,) * len(exp.all_mods), seed)
 
 
-def lm_case(torch):
+def lm_case(torch, dtype=None):
     """An LM-like shape the main path does not run, with one broadcast
     head: K=1, T=512, V=32000, M=3, seg=(0, 0, 128)."""
     K, T, V, M = 1, 512, 32000, 3
@@ -246,16 +252,37 @@ def lm_case(torch):
     avail[:, 0, 0] = 0.0
     mask = np.ones((K, T), np.float32)
     mask[:, -3:] = 0.0
-    return make_case(torch, labels, avail, mask, V, (0, 0, 128), seed=2)
+    return make_case(torch, labels, avail, mask, V, (0, 0, 128), seed=2,
+                     dtype=dtype)
+
+
+def sweep_case(torch, M, T, V, dtype, seed):
+    """One client at a shape of the JAX fusion sweep, its availability as
+    that test draws it (the first modality always there)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, V, (1, T))
+    avail = np.maximum(rng.integers(0, 2, (M, 1, T)),
+                       (np.arange(M) == 0)[:, None, None]).astype(np.float32)
+    return make_case(torch, labels, avail, np.ones((1, T), np.float32), V,
+                     (0,) * M, seed, dtype)
+
+
+def case_label(torch, c):
+    K, T, V, M = c["shape"]
+    bf = c["logits"][0].dtype == torch.bfloat16
+    return (f"K={K} T={T} V={V} M={M}"
+            + (f" seg={c['seg']}" if any(c["seg"]) else "")
+            + (" bf16" if bf else ""))
 
 
 def work(case, nblk):
     """(bytes, operations) each fusion-loss kernel needs on this case: every
-    input read once, every output written once.  The backward is counted
-    as the main path runs it, without partials."""
+    input read once (the logits in their own type), every output written
+    once.  The backward is counted as the main path runs it, without
+    partials."""
     K, T, V, M = case["shape"]
     KT = K * T
-    operands = sum(x.numel() for x in case["logits"]) * 4
+    operands = sum(x.numel() * x.element_size() for x in case["logits"])
     rows_in = KT * 4 + M * KT * 4                          # labels, avail
     fwd = (operands + rows_in + (3 * KT + 3 * M * KT) * 4,
            KT * V * (5 * M + 4))
@@ -269,17 +296,37 @@ def work(case, nblk):
 
 def kernel_phase(torch, ops, ref, exps):
     """Fusion-loss kernels vs plain (float32 and float64) at each paper
-    experiment's shape and the LM-like one; returns the cases and the max
-    abs error per kernel against the float32 plain."""
+    experiment's shape, the LM-like one and the JAX fusion sweep's, the
+    last two in float32 and bfloat16 (the plain versions upcast the same
+    bfloat16 values, so the float32 tolerances hold); the plan's shared
+    memory against the C side's.  Returns the cases and the max abs error
+    per kernel against the float32 plain."""
+    from repro_torch.kernels.fusion_loss.build import load
     cases = {name: path_case(torch, exp, seed=1 + i)
              for i, (name, exp) in enumerate(exps.items())}
     cases["lm"] = lm_case(torch)
+    cases["lm/bf16"] = lm_case(torch, torch.bfloat16)
+    for i, (M, T, V) in enumerate(FUSION_SWEEP):
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "/bf16")):
+            cases[f"jax-sweep{tag} M={M}"] = sweep_case(torch, M, T, V,
+                                                        dtype, 10 + i)
     errs = {k: [] for k in ("fusion_loss_fwd", "fusion_loss_bwd",
                             "fusion_loss_reduce")}
     for label, c in cases.items():
         K, T, V, M = c["shape"]
-        print(f"[kernels] {label}: K={K} T={T} V={V} M={M} seg={c['seg']}")
         lg, lab, av = c["logits"], c["labels"], c["avail"]
+        p = ops.plan(K, T, V, M, c["seg"], lg[0].dtype)
+        print(f"[kernels] {label}: {case_label(torch, c)} ({p.regime} "
+              f"regime, width {p.fwd.width} / {p.bwd.width}, "
+              f"{p.fwd.blocks} / {p.bwd.blocks} blocks)")
+        for bwd, d in ((0, p.fwd), (1, p.bwd)):
+            c_smem = load().fusion_loss_smem_bytes(
+                ops.REGIMES[p.regime], bwd, d.width, V, M,
+                lg[0].element_size())
+            if c_smem != d.smem:
+                raise AssertionError(f"plan shared memory {d.smem} != the C "
+                                     f"side's {c_smem}")
+        print("  plan shared memory equal to the C side's: ok")
         out = ops.fusion_loss_fwd(lg, lab, av, c["seg"])
         dl, gsq, gdot = ops.fusion_loss_bwd(lg, lab, av, c["d_fused"],
                                             c["d_modal"], out[3], out[5],
@@ -326,9 +373,10 @@ def kernel_phase(torch, ops, ref, exps):
         f_nll, m_nll = ops.FusionLoss.apply(c["seg"], lab, av, *xs)
         torch.autograd.backward((f_nll, m_nll), (c["d_fused"], c["d_modal"]))
         for m, (x, s) in enumerate(zip(xs, c["seg"])):
+            # the Function casts the gradient to the operand's type
             want = dl[m] if not s else dl[m].reshape(K, -1, s, V).sum(2)
-            check(torch, f"autograd grad[{m}] vs bwd kernel", x.grad, want,
-                  TOL_BWD, [])
+            check(torch, f"autograd grad[{m}] vs bwd kernel", x.grad,
+                  want.to(x.dtype), TOL_BWD, [])
     return cases, {k: max(v) for k, v in errs.items()}
 
 
@@ -633,8 +681,13 @@ def remat_phase(torch, MFLExperiment, counters, arch):
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
+def floor_ms(torch):
+    """Device time of a one-element ``add_``: the launch floor."""
+    one = torch.zeros(1, device=DEVICE)
+    return device_ms(torch, lambda: one.add_(1.0))
+
+
 def timing_phase(torch, ops, ref, cases):
-    from repro_torch.kernels.fusion_loss.build import load
     per_shape = {}
     for label, c in cases.items():
         lgs, lab, av, shape = ops._kernel_operands(
@@ -661,10 +714,10 @@ def timing_phase(torch, ops, ref, cases):
                 lambda: partials.sum(dim=1),
                 lambda: partials.sum(dim=1)),
         }
-        w = work(c, load().fusion_loss_bwd_blocks(shape[1]))
-        K, T, V, M = c["shape"]
-        shape_txt = (f"K={K} T={T} V={V} M={M}"
-                     + (f" seg={c['seg']}" if any(c["seg"]) else ""))
+        p = ops.plan(*shape, tuple(c["seg"]), lgs[0].dtype)
+        w = work(c, p.nblk)
+        shape_txt = (f"{case_label(torch, c)} ({p.regime} "
+                     f"{p.fwd.width}/{p.bwd.width})")
         rows = {}
         for name, (kern, plain, lib) in calls.items():
             lib_txt = ("partials.sum(dim=1)" if lib else
@@ -843,6 +896,10 @@ def main() -> int:
         profile_round(torch, exps[arch, "crema_d"], f"{arch}/crema_d")
 
     # phase 4: times
+    floor = floor_ms(torch)
+    print(f"[floor] one-element add_: device "
+          + ("not measured" if floor is None else f"{floor:.6f} ms")
+          + f" ({card})")
     times = timing_phase(torch, ops, ref, cases)
     bb_times = backbone_timing_phase(torch, attn, ssd)
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.core import fusion as jfusion
+from repro.kernels.fusion_loss import kernel as jkernel
 from repro.kernels.fusion_loss import ops as jops
 from repro_torch.core import fusion as tfusion
 from repro_torch.kernels.fusion_loss import ops as tops
@@ -251,3 +252,34 @@ def test_ref_f32_matches_f64_oracle():
     for got, want in zip(tref.fusion_loss_ref_grads(*t),
                          tref.fusion_loss_ref_grads(*t, dtype=torch.float64)):
         _close(got, want, GRAD)
+
+
+def test_bf16_plain_path_matches_jax_kernel_on_bf16_values():
+    """bfloat16 logits at the JAX fusion sweep's (M, T, V) = (4, 128, 512):
+    the port's plain path and the JAX kernel (interpret mode) both upcast
+    the same bfloat16 values to float32, so the float32 results agree to
+    1e-5.  JAX returns dlogits cast to the operand's type (bfloat16), the
+    port's ``fusion_loss_grads`` float32: those agree to bfloat16's
+    rounding (2^-8 relative)."""
+    M, T, V = 4, 128, 512
+    logits, labels, avail, df, dm = _kernel_case(M, T, V, seed=11)
+    jl = jnp.asarray(logits, jnp.bfloat16)
+    tl = torch.as_tensor(logits).to(torch.bfloat16)
+    np.testing.assert_array_equal(np.asarray(jl, np.float32),
+                                  tl.float().numpy())
+    tol = dict(rtol=1e-5, atol=1e-5)
+    jf, jm = jkernel.fusion_loss_pallas(jl, jnp.asarray(labels),
+                                        jnp.asarray(avail), interpret=True)
+    tf, tm = tops.fusion_loss(tl, torch.as_tensor(labels),
+                              torch.as_tensor(avail))
+    _close(tf, jf, tol)
+    _close(tm, jm, tol)
+    jd, jsq, jdot = jops.fusion_loss_grads(
+        jl, jnp.asarray(labels), jnp.asarray(avail), jnp.asarray(df),
+        jnp.asarray(dm), interpret=True)
+    td, tsq, tdot = tops.fusion_loss_grads(
+        tl, *(torch.as_tensor(x) for x in (labels, avail, df, dm)))
+    assert jd.dtype == jnp.bfloat16 and td.dtype == torch.float32
+    _close(tsq, jsq, tol)
+    _close(tdot, jdot, tol)
+    _close(td, np.asarray(jd, np.float32), dict(rtol=2 ** -8, atol=1e-7))

@@ -135,6 +135,133 @@ def test_card_run_goes_through_the_kernels(cuda):
     assert counts["fusion_loss_reduce"] == 0
 
 
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+#: (K, T, V, M, seg, dtype, element offset of each operand, regime and,
+#: for the group regime, the forward's threads a row): the
+#: paper's shapes, each regime's edges (V = 1, 12, 16, 17, 31, 32, 33, 37, 64,
+#: the rows regime's reach depending on the rows of a call), rows not a
+#: multiple of a block, broadcast heads in each regime, M = 1 and 4, all
+#: three operand types, and operands that start off a 16-byte boundary,
+#: alike (read in 16-byte pieces after a scalar head) or not (scalar loads)
+FUSION_CARD_CASES = [
+    (10, 96, 6, 2, (0, 0), F32, (0, 0), "rows"),
+    (10, 96, 10, 2, (0, 0), BF16, (0, 0), "rows"),
+    (3, 50, 1, 1, (0,), F32, (0,), "rows"),
+    (2, 70, 12, 4, (0, 0, 0, 0), F16, (1, 0, 3, 1), "rows"),
+    (10, 96, 16, 2, (0, 0), BF16, (0, 1), "rows"),
+    (10, 96, 17, 2, (0, 0), F32, (0, 0), "group/32"),
+    (40, 130, 31, 4, (0, 0, 0, 0), F16, (1, 0, 3, 1), "rows"),
+    (40, 128, 32, 3, (0, 0, 8), F32, (0, 0, 0), "rows"),
+    (64, 64, 64, 2, (0, 0), BF16, (0, 0), "rows"),
+    (200, 128, 20, 2, (0, 0), F32, (0, 0), "rows"),
+    (2, 70, 31, 4, (0, 0, 0, 0), F16, (1, 0, 3, 1), "group/32"),
+    (4, 40, 32, 3, (0, 0, 8), F32, (0, 0, 0), "group/32"),
+    (5, 33, 33, 2, (0, 11), BF16, (0, 0), "group/32"),
+    (3, 16, 37, 3, (0, 0, 4), F32, (1, 2, 3), "group/32"),
+    (2, 24, 100, 4, (0, 0, 0, 0), F16, (0, 0, 0, 0), "group/32"),
+    (1, 128, 1024, 1, (0,), BF16, (0,), "group/256"),
+    (1, 64, 4096, 3, (0, 0, 0), F32, (3, 3, 3), "group/256"),
+    (1, 32, 32000, 3, (0, 0, 8), BF16, (0, 0, 0), "group/256"),
+    (2, 8, 5000, 2, (0, 2), F16, (0, 0), "group/256"),
+    (1, 16, 4097, 2, (0, 0), F32, (1, 1), "group/256"),
+]
+
+
+def _fusion_card_case(K, T, V, M, seg, dtype, offs, seed=0):
+    """Logits of ``dtype`` on the card, each a contiguous view that starts
+    ``offs[m]`` elements into its storage; labels, avail with unscheduled
+    rows, cotangents."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lg = []
+    for s, off in zip(seg, offs):
+        shape = (K, T // s if s else T, V)
+        n = K * shape[1] * V
+        flat = (torch.randn(n + off, device="cuda", generator=g) * 3
+                ).to(dtype)
+        lg.append(flat[off:].view(shape))
+    labels = torch.randint(0, V, (K, T), device="cuda", generator=g)
+    avail = (torch.rand((M, K, 1), device="cuda", generator=g) < 0.7
+             ).float().expand(M, K, T).contiguous()
+    avail[:, 0, 0] = 0.0
+    df = torch.randn((K, T), device="cuda", generator=g)
+    dm = torch.randn((M, K, T), device="cuda", generator=g)
+    return lg, labels, avail, df, dm
+
+
+def _fusion_against_plain(lg, labels, avail, df, dm, seg, p=None):
+    """Both kernels (at ``p`` or the planned launch) against the plain
+    version on the same values; gsq/gdot bitwise equal across two runs and
+    the backward without partials equal to the one with them."""
+    lgs, lab, av, shape = ops._kernel_operands(lg, labels, avail, seg)
+    out = ops._launch_fwd(lgs, lab, av, seg, shape, p=p)
+    runs = []
+    for _ in range(2):
+        dl, part = ops._launch_bwd(lgs, lab, av, df, dm, out[3], out[5], seg,
+                                   shape, p=p)
+        runs.append((dl, ops._launch_reduce(part)))
+    dl_step, _ = ops._launch_bwd(lgs, lab, av, df, dm, out[3], out[5], seg,
+                                 shape, with_partials=False, p=p)
+    torch.cuda.synchronize()
+    (dl, (gsq, gdot)), (_, (gsq2, gdot2)) = runs
+    assert torch.equal(gsq, gsq2) and torch.equal(gdot, gdot2)
+    assert all(map(torch.equal, dl_step, dl))
+    stack = ops._plain_stack(lg, seg)
+    for got, want in zip(out, ref.fusion_loss_ref(stack, labels, avail,
+                                                  save_residuals=True)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    d, sq, dot = ref.fusion_loss_ref_grads(stack, labels, avail, df, dm)
+    for m in range(len(lg)):
+        torch.testing.assert_close(dl[m], d[m], rtol=1e-5, atol=2e-6)
+    torch.testing.assert_close(gsq, sq.T, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gdot, dot.T, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,T,V,M,seg,dtype,offs,regime", FUSION_CARD_CASES)
+def test_fusion_kernel_regimes_match_plain_on_card(cuda, K, T, V, M, seg,
+                                                   dtype, offs, regime):
+    """Each regime's edges against the plain version on the same values
+    (float32 tolerances: both compute in float32 from the same inputs)."""
+    p = ops.plan(K, T, V, M, seg, dtype)
+    assert (p.regime if p.regime == "rows"
+            else f"{p.regime}/{p.fwd.width}") == regime
+    _fusion_against_plain(*_fusion_card_case(K, T, V, M, seg, dtype, offs),
+                          seg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime,width", [("rows", ops.ROWS_R)]
+                         + [("group", G) for G in ops.FWD_WIDTHS])
+def test_fusion_kernel_every_width_matches_plain_on_card(cuda, regime, width):
+    """Every forward width the C side builds, forced past the plan, with
+    the backward width the plan pairs with it (so every backward width
+    too): rows at V = 24 with four operands, group at V = 3000 in bfloat16
+    with a broadcast head."""
+    if regime == "rows":
+        K, T, V, M, seg, dt = 3, 300, 24, 4, (0, 0, 0, 0), F32
+    else:
+        K, T, V, M, seg, dt = 2, 40, 3000, 3, (0, 0, 5), BF16
+    p = ops.make_plan(regime, width, K, T, V, M, dt.itemsize)
+    _fusion_against_plain(*_fusion_card_case(K, T, V, M, seg, dt,
+                                             (0,) * M, seed=width),
+                          seg, p=p)
+
+
+@pytest.mark.gpu
+def test_fusion_kernel_refuses_what_no_plan_takes(cuda):
+    """No quiet plain path on the card: a float64 operand, operands of two
+    types and a fifth modality raise."""
+    lg, labels, avail, _, _ = _fusion_card_case(1, 8, 40, 2, (0, 0), F32,
+                                                (0, 0))
+    with pytest.raises(TypeError):
+        ops.fusion_loss_fwd([x.double() for x in lg], labels, avail, (0, 0))
+    with pytest.raises(TypeError):
+        ops.fusion_loss_fwd([lg[0], lg[1].bfloat16()], labels, avail, (0, 0))
+    with pytest.raises(ValueError):
+        ops.fusion_loss_fwd(lg * 3, labels, avail.repeat(3, 1, 1),
+                            (0,) * 6)
+
+
 #: (B, H, KH, S, hd, window, dtype): the training path's heads at S=32 and
 #: S=24, GQA, windows and the JAX sweep's widest case
 ATTN_CARD_CASES = [
@@ -266,6 +393,13 @@ def test_python_plans_match_the_kernels_shared_memory(cuda):
             assert fa_load().flash_attention_smem_bytes(
                 fa_ops.REGIMES[p.regime], code, S, hd, p.c_arg,
                 H // KH, p.key_tile) == p.smem
+    from repro_torch.kernels.fusion_loss.build import load as fl_load
+    for K, T, V, M, seg, dt, _, _ in FUSION_CARD_CASES:
+        p = ops.plan(K, T, V, M, seg, dt)
+        for bwd, d in ((0, p.fwd), (1, p.bwd)):
+            assert fl_load().fusion_loss_smem_bytes(
+                ops.REGIMES[p.regime], bwd, d.width, V, M,
+                dt.itemsize) == d.smem
 
 
 @pytest.mark.gpu

@@ -176,3 +176,142 @@ def test_attention_plan_takes_unaligned_operands_off_the_long_regime():
 def test_attention_plan_raises_past_the_largest_head_dim():
     with pytest.raises(ValueError, match="head dims up to 256"):
         fa_ops.plan(1, 64, 2, 2, 512, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the fusion-loss kernels (kernels/fusion_loss/ops.py:plan)
+# ---------------------------------------------------------------------------
+from repro_torch.kernels.fusion_loss import ops as fl_ops  # noqa: E402
+
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+#: (K, T, V, M, seg, dtype) -> regime, and for the group regime the
+#: forward's threads a row: the paper's client stacks (CREMA-D,
+#: IEMOCAP), the LM-like shape with a broadcast head, the JAX fusion sweep
+#: (tests/test_kernels.py, K = 1) in both types, the regimes' edges at
+#: V = 1, 12, 16, 17, 31, 32, 33, 37, 64, 65 with few and many rows, rows not a
+#: multiple of a block, broadcast heads in each regime, M = 1 and 4,
+#: bfloat16 and float16
+FUSION_SHAPES = [
+    ((10, 96, 6, 2, (0, 0), F32), "rows"),
+    ((10, 96, 10, 2, (0, 0), F32), "rows"),
+    ((10, 96, 6, 2, (0, 0), BF16), "rows"),
+    ((1, 512, 32000, 3, (0, 0, 128), F32), "group/128"),
+    ((1, 512, 32000, 3, (0, 0, 128), BF16), "group/128"),
+    ((1, 128, 1024, 1, (0,), F32), "group/256"),
+    ((1, 256, 2048, 2, (0, 0), F32), "group/128"),
+    ((1, 64, 4096, 3, (0, 0, 0), F32), "group/256"),
+    ((1, 128, 512, 4, (0, 0, 0, 0), F32), "group/256"),
+    ((1, 128, 1024, 1, (0,), BF16), "group/256"),
+    ((1, 256, 2048, 2, (0, 0), BF16), "group/128"),
+    ((1, 64, 4096, 3, (0, 0, 0), BF16), "group/256"),
+    ((1, 128, 512, 4, (0, 0, 0, 0), BF16), "group/256"),
+    ((3, 50, 1, 1, (0,), F32), "rows"),
+    ((2, 70, 12, 4, (0, 0, 0, 0), F16), "rows"),
+    ((2, 70, 16, 4, (0, 0, 0, 0), F16), "rows"),
+    ((2, 70, 17, 4, (0, 0, 0, 0), F16), "group/32"),
+    ((2, 70, 31, 4, (0, 0, 0, 0), F16), "group/32"),
+    ((4, 40, 32, 3, (0, 0, 8), F32), "group/32"),
+    ((40, 128, 32, 3, (0, 0, 8), F32), "rows"),
+    ((200, 97, 32, 4, (0, 0, 0, 0), F32), "rows"),
+    ((64, 64, 64, 2, (0, 0), BF16), "rows"),
+    ((64, 64, 65, 2, (0, 0), BF16), "group/32"),
+    ((5, 33, 33, 2, (0, 11), BF16), "group/32"),
+    ((3, 16, 37, 3, (0, 0, 4), F32), "group/32"),
+    ((64, 100, 37, 1, (0,), F16), "rows"),
+    ((2, 8, 5000, 2, (0, 2), F16), "group/256"),
+    ((4096, 128, 151936, 4, (0, 0, 0, 128), BF16), "group/512"),
+]
+
+
+def _regime(p):
+    """``rows``, or ``group/<forward threads a row>``."""
+    return p.regime if p.regime == "rows" else f"{p.regime}/{p.fwd.width}"
+
+
+@pytest.mark.parametrize("shape,regime", FUSION_SHAPES)
+def test_fusion_plan_regime_and_limits(shape, regime):
+    K, T, V, M, seg, dt = shape
+    p = fl_ops.plan(*shape)
+    assert _regime(p) == regime
+    regime = p.regime                               # "rows" or "group"
+    assert (p.regime == "rows") == fl_ops.takes_rows(K, T, V)
+    esize = dt.itemsize
+    for bwd, d in ((False, p.fwd), (True, p.bwd)):
+        assert 0 < d.threads <= 1024 and d.threads % 32 == 0
+        assert 1 <= d.blocks <= BLOCKS and 0 <= d.smem <= SMEM
+        # every row in exactly one block, and a block within one client
+        nblk = -(-T // d.rows)
+        assert d.blocks == K * nblk and nblk * d.rows >= T
+        assert d.smem == fl_ops.smem_bytes(regime, bwd, d.width, V, M, esize)
+        assert d == fl_ops.make_launch(regime, bwd, d.width, K, T, V, M,
+                                       esize)
+        if regime == "rows":
+            assert d.width == d.rows == fl_ops.ROWS_R
+            assert d.threads == (fl_ops.BWD_ROWS_THREADS if bwd else d.width)
+        else:
+            assert d.width in (fl_ops.BWD_WIDTHS if bwd
+                               else fl_ops.FWD_WIDTHS)
+            assert d.threads == d.width * d.rows == max(d.width, 256)
+    assert p.nblk * K == p.bwd.blocks
+    if regime != "rows":
+        assert p.bwd.width == (32 if p.fwd.width == 32 else 512
+                               if V >= fl_ops.WIDE_V else 256)
+
+
+def test_fusion_plan_fills_the_card_at_the_lm_shape():
+    """512 rows of 32000 classes: 128 threads a row forward (two rows a
+    block), a block of 512 a row backward; every SM busy."""
+    p = fl_ops.plan(1, 512, 32000, 3, (0, 0, 128), F32)
+    assert (p.fwd.width, p.bwd.width) == (128, 512)
+    assert p.fwd.blocks == 256 and p.bwd.blocks == 512 >= 132   # SMs
+
+
+@pytest.mark.parametrize("regime,width", [("rows", fl_ops.ROWS_R)]
+                         + [("group", G) for G in fl_ops.FWD_WIDTHS])
+def test_fusion_every_width_fits_a_block(regime, width):
+    """Every forward width the C side builds, with the backward width the
+    plan pairs with it, at the shapes the card tests force them at
+    (tests/test_torch_isolation.py) and, for rows, at the widest row the
+    plan gives the regime with four float32 operands, within a block's
+    limits."""
+    shapes = ([(3, 300, 24, 4, 4), (3, 300, fl_ops.ROWS_MAX_V, 4, 4)]
+              if regime == "rows" else [(2, 40, 3000, 3, 2)])
+    for K, T, V, M, esize in shapes:
+        p = fl_ops.make_plan(regime, width, K, T, V, M, esize)
+        for d in (p.fwd, p.bwd):
+            assert d.smem <= SMEM and d.threads <= 1024
+            assert d.blocks == K * -(-T // d.rows)
+
+
+def test_fusion_plan_takes_rows_further_when_a_call_has_many():
+    """The rows regime's reach: 16 classes at the paper's cohort (960 rows),
+    64 from 4096 rows on."""
+    assert fl_ops.plan(10, 96, 16, 2, (0, 0), F32).regime == "rows"
+    assert _regime(fl_ops.plan(10, 96, 17, 2, (0, 0), F32)) == "group/32"
+    assert fl_ops.plan(32, 128, 64, 2, (0, 0), F32).regime == "rows"
+    assert _regime(fl_ops.plan(31, 128, 64, 2, (0, 0), F32)) == "group/32"
+
+
+@pytest.mark.parametrize("width", [64, 128])
+def test_fusion_backward_takes_only_the_widths_the_plan_gives(width):
+    """The C side builds the group backward at 32, 256 and 512 threads a
+    row only; a launch at another width is refused in Python too."""
+    assert width in fl_ops.FWD_WIDTHS and width not in fl_ops.BWD_WIDTHS
+    fl_ops.make_launch("group", False, width, 2, 40, 3000, 3, 2)
+    with pytest.raises(ValueError):
+        fl_ops.make_launch("group", True, width, 2, 40, 3000, 3, 2)
+    with pytest.raises(ValueError):
+        fl_ops.make_plan("group", 128, 2, 40, 3000, 3, 2, width_bwd=width)
+
+
+@pytest.mark.parametrize("args,exc", [
+    ((1, 8, 10, 5, (0,) * 5, F32), ValueError),      # M > 4
+    ((1, 8, 10, 0, (), F32), ValueError),
+    ((1, 8, 0, 2, (0, 0), F32), ValueError),
+    ((1, 8, 10, 2, (0, 3), F32), ValueError),        # seg does not divide T
+    ((1, 8, 10, 2, (0, 0), torch.float64), TypeError),
+    ((1, 8, 10, 2, (0, 0), torch.int32), TypeError),
+])
+def test_fusion_plan_raises_for_what_no_regime_takes(args, exc):
+    with pytest.raises(exc):
+        fl_ops.plan(*args)
