@@ -5,11 +5,11 @@
 
 Phases, each of which fails the run when it fails:
 
-1. build the three kernel libraries from ``src/repro_torch/kernels`` (one
+1. build the four kernel libraries from ``src/repro_torch/kernels`` (one
    nvcc per source, all started together, ``sm_90a``) and print the build
    seconds and each ``-Xptxas -v``;
 2. set up the main path — the paper's ``MFLExperiment(dataset, K=10,
-   n_samples=1200, engine="batched:seq+pallas")`` for CREMA-D and IEMOCAP,
+   n_samples=1200, engine="batched:pallas")`` for CREMA-D and IEMOCAP,
    and the same with ``arch="transformer"`` and ``arch="ssd"`` — and hold
    every kernel against its plain PyTorch version on the card, in float32
    and float64:
@@ -25,16 +25,25 @@ Phases, each of which fails the run when it fails:
      shapes (tests/test_kernels.py; attention in bfloat16 too), with the
      autograd Functions' gradients against plain autograd;
 3. drive the main path — paper CREMA-D for 3 rounds and IEMOCAP for 1, then
-   each backbone on each dataset for 2 rounds — with the launch counters
-   set to 0 just before and read after each run, failing if a kernel of
-   that run's path was not launched; check its output: finite params,
-   every metric present, one ``+remat`` round equal to the plain round, and
-   small twin runs on the card that agree with the plain path on the CPU;
-   profile one paper, one transformer and one SSD round;
+   each backbone on each dataset for 2 rounds, every one with JCSBA on the
+   card's solver kernels — with the launch counters set to 0 just before
+   and read after each run, failing if a kernel of that run's path was not
+   launched; check its output: finite params, every metric present, one
+   ``+remat`` round equal to the plain round, and small twin runs on the
+   card that agree with the plain path on the CPU (one of them JCSBA on
+   the card's solver against the plain solver, on the same CPU-drawn
+   bits); one ``batched:seq+pallas`` CREMA-D round (the host search) and
+   one round of each baseline scheduler; profile one paper, one
+   transformer and one SSD round;
+3b. ``[solver]``: the two JCSBA solver kernels against their plain versions
+   on the round data the paper CREMA-D run gave the solver (K=10, captured)
+   and at K = 100 and 1000, rows of 1-5 clients, P = 1, 20, 24; one whole
+   solve with the kernels against one with the plain versions on the same
+   draws (same a*, J and B within tolerance);
 4. time each kernel (CUDA events, after warm-up) beside its plain version,
    its bound and, where one PyTorch call computes the same function, that
-   call, at every shape of phase 2; a ``[floor]`` line gives the device
-   time of a one-element ``add_``, the launch floor.
+   call, at every shape of phases 2 and 3b; a ``[floor]`` line gives the
+   device time of a one-element ``add_``, the launch floor.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, without CUDA.
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
@@ -70,30 +79,39 @@ REPLACES = {
     "fusion_loss_reduce": "src/repro/kernels/fusion_loss/kernel.py:215",
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:25",
     "ssd_chunk_fwd": "src/repro/kernels/ssd_scan/kernel.py:22",
+    # no Pallas kernel: XLA fuses these in the JAX package's jitted solve
+    "jcsba_bmin_kernel": "src/repro/wireless/solver/jaxsolver.py:69",
+    "jcsba_population_kernel": "src/repro/wireless/solver/jaxsolver.py:113",
 }
 _CSRC = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
 SOURCES = {"fusion_loss_fwd": _CSRC.format("fusion_loss"),
            "fusion_loss_bwd": _CSRC.format("fusion_loss"),
            "fusion_loss_reduce": _CSRC.format("fusion_loss"),
            "flash_attention_fwd": _CSRC.format("flash_attention"),
-           "ssd_chunk_fwd": _CSRC.format("ssd_scan")}
+           "ssd_chunk_fwd": _CSRC.format("ssd_scan"),
+           "jcsba_bmin_kernel": _CSRC.format("jcsba_solver"),
+           "jcsba_population_kernel": _CSRC.format("jcsba_solver")}
+SOLVER_KERNELS = ("jcsba_bmin_kernel", "jcsba_population_kernel")
 #: the kernels the main path launches (the training step reads no gsq/gdot,
 #: so it launches no partial reduce)
 PATH_KERNELS = ("fusion_loss_fwd", "fusion_loss_bwd", "flash_attention_fwd",
-                "ssd_chunk_fwd")
+                "ssd_chunk_fwd") + SOLVER_KERNELS
 #: the kernels each architecture's runs must launch
 ARCH_KERNELS = {"lstm-cnn": ("fusion_loss_fwd", "fusion_loss_bwd"),
                 "transformer": ("fusion_loss_fwd", "fusion_loss_bwd",
                                 "flash_attention_fwd"),
                 "ssd": ("fusion_loss_fwd", "fusion_loss_bwd",
                         "ssd_chunk_fwd")}
+ARCH_KERNELS = {a: ks + SOLVER_KERNELS for a, ks in ARCH_KERNELS.items()}
+#: the baseline schedulers, one CREMA-D round each
+BASELINES = ("random", "round_robin", "selection", "dropout")
 
 #: the main path: (arch, dataset, rounds) at MFLExperiment's defaults; the
 #: paper runs are cut from 5 + 2 rounds to 3 + 1 to fit the backbones in
 MAIN_PATH = (("lstm-cnn", "crema_d", 3), ("lstm-cnn", "iemocap", 1),
              ("transformer", "crema_d", 2), ("transformer", "iemocap", 2),
              ("ssd", "crema_d", 2), ("ssd", "iemocap", 2))
-MAIN_KW = dict(K=10, n_samples=1200, engine="batched:seq+pallas")
+MAIN_KW = dict(K=10, n_samples=1200, engine="batched:pallas")
 
 # tolerances, float32 kernel against the plain version (another summation
 # order): fusion-loss per-row losses and residuals, per-element gradients,
@@ -107,6 +125,11 @@ TOL_ATTN = dict(rtol=2e-5, atol=2e-5)
 TOL_ATTN_BF16 = dict(rtol=3e-2, atol=3e-2)
 TOL_SSD = dict(rtol=1e-4, atol=1e-4)
 TOL_GRAD = dict(rtol=1e-5, atol=1e-5)
+# the solver kernels against their plain versions (tests/test_solver_parity
+# .py's tolerances): J, and B in Hz (float32 bisections whose sums differ in
+# order, which may move B by ulps near the κ root)
+TOL_SOLVER_J = dict(rtol=1e-4, atol=1e-6)
+TOL_SOLVER_B = dict(rtol=1e-3, atol=2.0)
 
 #: the JAX package's fusion-loss sweep (tests/test_kernels.py): (M, T, V)
 FUSION_SWEEP = ((1, 128, 1024), (2, 256, 2048), (3, 64, 4096), (4, 128, 512))
@@ -193,8 +216,10 @@ def build_phase():
     """One nvcc per source, all started together."""
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.fusion_loss import build as fl_build
+    from repro_torch.kernels.jcsba_solver import build as js_build
     from repro_torch.kernels.ssd_scan import build as ssd_build
-    libs = [fl_build.LIBRARY, fa_build.LIBRARY, ssd_build.LIBRARY]
+    libs = [fl_build.LIBRARY, fa_build.LIBRARY, ssd_build.LIBRARY,
+            js_build.LIBRARY]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(verbose=True), libs))
@@ -599,8 +624,8 @@ def run_experiment(torch, exp, metric_keys, label, rounds):
 
 def profile_round(torch, exp, label):
     """One more round under ``torch.profiler``: the device's busy share of
-    the round's wall time, the host scheduler's share, and the kernels that
-    take the device time."""
+    the round's wall time, the scheduler's share (JCSBA's solve on the card
+    and its one read-back), and the kernels that take the device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -621,7 +646,7 @@ def profile_round(torch, exp, label):
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     launches = sum(e.count for e in events)
     print(f"[profile] {label} round {rec.round}: wall {wall_ms:.3f} ms, "
-          f"host scheduler {rec.sched_time_s * 1e3:.3f} ms, device busy "
+          f"scheduler {rec.sched_time_s * 1e3:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.2%} of wall; idle "
           f"{1 - busy_ms / wall_ms:.2%}), {launches} device ops")
     for e in sorted(events, key=_device_us, reverse=True)[:8]:
@@ -679,6 +704,368 @@ def remat_phase(torch, MFLExperiment, counters, arch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the schedulers — the host search's round, the baselines, and the
+# JCSBA solve on the card against the plain solve on the CPU
+# ---------------------------------------------------------------------------
+def seq_round_phase(torch, MFLExperiment, exp_jax):
+    """One CREMA-D round with the host ``seq`` search, beside the device
+    solve's scheduler times of the main path's CREMA-D rounds."""
+    exp = MFLExperiment("crema_d", **dict(MAIN_KW,
+                                          engine="batched:seq+pallas"))
+    rec = exp.run_round()
+    torch.cuda.synchronize()
+    dev = [r.sched_time_s * 1e3 for r in exp_jax.history]
+    print(f"[sched] crema_d K=10 sched_time_s: batched:seq+pallas (host "
+          f"immune search) {rec.sched_time_s * 1e3:.3f} ms; batched:pallas "
+          f"(solver kernels on the card) "
+          + ", ".join(f"{t:.3f}" for t in dev) + " ms")
+
+
+def baseline_phase(torch, MFLExperiment, counters):
+    """One CREMA-D round of each baseline scheduler (K=10, n=1200): every
+    metric finite, the fusion-loss kernels launched, no solver kernel."""
+    from repro_torch.fl.eval import metric_keys
+    reset, read = counters
+    for name in BASELINES:
+        exp = MFLExperiment("crema_d", scheduler=name, **MAIN_KW)
+        reset()
+        run_experiment(torch, exp, metric_keys, f"{name}/crema_d", 1)
+        now = read()
+        rec = exp.history[-1]
+        print(f"[sched] {name}/crema_d: participants {rec.participants}, "
+              f"failures {rec.failures}, dropped {rec.dropped}, sched "
+              f"{rec.sched_time_s * 1e3:.3f} ms, launches "
+              f"{ {k: v for k, v in now.items() if v} }")
+        if not (now["fusion_loss_fwd"] and now["fusion_loss_bwd"]):
+            raise AssertionError(f"{name}: the fusion loss was not launched")
+        if any(now[k] for k in SOLVER_KERNELS):
+            raise AssertionError(f"{name}: a solver kernel was launched")
+
+
+def cpu_draws(policy, seed):
+    """A draw source on a CPU generator: the card run moves these bits to
+    the card, so both twins schedule on the same bits."""
+    import torch
+    return policy.draws(torch.Generator().manual_seed(seed), "cpu")
+
+
+def solver_twin_phase(torch, MFLExperiment, rounds=2):
+    """JCSBA on the card's solver kernels against the plain solver on the
+    CPU, on the same CPU-drawn bits (CREMA-D, K=4, n=160): participants
+    equal, params within 1e-4."""
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core.trees import tree_leaves
+    kw = dict(K=4, n_samples=160, engine="batched:pallas",
+              scheduler_kwargs={"draw_source": cpu_draws})
+    gpu = MFLExperiment("crema_d", **kw)
+    cpu = MFLExperiment("crema_d", device="cpu", **kw)
+    for _ in range(rounds):
+        rg, rc = gpu.run_round(), cpu.run_round()
+        if rg.participants != rc.participants:
+            raise AssertionError(f"jcsba twin: participants "
+                                 f"{rg.participants} (card) != "
+                                 f"{rc.participants} (cpu)")
+    a = tree_leaves(params_to_numpy(gpu.global_params))
+    b = tree_leaves(params_to_numpy(cpu.global_params))
+    err = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    print(f"[main] jcsba/crema_d twin run ({rounds} rounds, solver kernels "
+          f"on the card vs plain solver on the cpu, same bits): "
+          f"participants equal {[r.participants for r in gpu.history]}, "
+          f"params max|err| {err:.3e} (tol 1e-4)")
+    if err > 1e-4:
+        raise AssertionError("jcsba twin runs disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the JCSBA solver kernels against their plain versions
+# ---------------------------------------------------------------------------
+class record_launches:
+    """Records each population launch made while open — its rows, B_min,
+    ok and ``want_B``, cloned — and lets the launch go on as it would."""
+
+    def __enter__(self):
+        from repro_torch.kernels.jcsba_solver import ops
+        self.ops, self.orig, self.seen = ops, ops.population_objective, []
+
+        def wrapper(A, bmin_, ok, data, hp, want_B=False, args=None):
+            self.seen.append((A.clone(), bmin_.clone(), ok.clone(), want_B))
+            return self.orig(A, bmin_, ok, data, hp, want_B, args)
+
+        ops.population_objective = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.population_objective = self.orig
+
+
+class SolverCapture:
+    """Records the first solve the main path hands ``solve_core`` (round
+    data, warm-start seeds, draws, hyper-parameters) and every population
+    launch of that solve, while open."""
+
+    def __enter__(self):
+        from repro_torch.wireless import policies
+        self.mod, self.orig, self.seen = policies, policies.solve_core, None
+
+        def wrapper(data, seeds, draws, hp):
+            if self.seen is not None:
+                return self.orig(data, seeds, draws, hp)
+            inputs = (dict(data), seeds.clone(),
+                      tuple(d.clone() for d in draws), hp)
+            with record_launches() as rec:
+                out = self.orig(data, seeds, draws, hp)
+            self.seen = inputs + (rec.seen,)
+            return out
+
+        self.mod.solve_core = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.solve_core = self.orig
+
+
+#: operations of φ at one point besides its numerator (x: 3, log1p: 1,
+#: the branch test: 1, the quotient: 8; a transcendental counted as one),
+#: of each numerator (the exact one: 3, the series below PHI_SERIES_X: 6),
+#: of one bisection step around φ (midpoint, compare, two selects) and of
+#: one rate evaluation
+OPS_PHI, OPS_NUM_EXACT, OPS_NUM_SERIES, OPS_STEP, OPS_RATE = 13, 3, 6, 4, 6
+
+
+def phi_ops(torch, B, d):
+    """Operations of φ at each point of B: one numerator, the one its x
+    takes."""
+    from repro_torch.wireless.solver.common import PHI_SERIES_X
+    x = d["p_tx"] * d["h"] / (B * d["N0"])
+    return OPS_PHI + torch.where(x < PHI_SERIES_X, OPS_NUM_SERIES,
+                                 OPS_NUM_EXACT)
+
+
+def solver_work(torch, d, A, bm, ok, hp):
+    """(bytes, operations) of one population launch on these rows, as this
+    data needs them.  Bytes: every input read once, J and feasible written
+    once.  Operations, per row: φ(B_min) of every client and the row's
+    sums; for a row on the KKT path, the κ walk replayed on the host with
+    the plain version's float32 operations (``ref.allocate``'s u_a/u_b),
+    charging at each of its n_k + 1 points n_b bisection steps of each
+    participant that is not pinned at it (pinned and Q ≤ 0 participants
+    bisect nothing, as in the kernel), each φ with the numerator its x
+    takes, and the Σ over participants; the slack spread or the
+    closed-form split; the energy of each participant and the bound over
+    [M, K] of each feasible row."""
+    import math
+    from repro_torch.kernels.jcsba_solver import ref
+    from repro_torch.wireless.solver.common import KAPPA_TINY, TOL_B
+    d = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in d.items()}
+    A, bm, ok = A.cpu().to(torch.bool), bm.cpu(), ok.cpu()
+    Q, B_max = d["Q"], d["B_max"]
+    P, K = A.shape
+    M = d["zeta2"].shape[0]
+    nbytes = P * K + 6 * 4 * K + K + M * 4 + 2 * M * K * 4 + M * K + P * 5
+    Af = A.to(torch.float32)
+    s = Af.sum(-1)
+    tot = (Af * bm).sum(-1)
+    feas = ~(A & ~ok).any(-1) & (tot <= B_max + TOL_B)
+    active = A & (Q > 0)
+    kkt = feas & (tot < B_max - TOL_B) & active.any(-1)
+    ops = P * (int(phi_ops(torch, bm, d).sum()) + 6 * K)
+    ops += int((feas * s).sum()) * (OPS_RATE + 6 + 2) \
+        + int(feas.sum()) * M * K * 8
+    if not kkt.any():
+        return nbytes, ops
+    phi_b = ref.phi(bm, Q, d["gamma"], d["h"], d["p_tx"], d["N0"])
+    Ak, sk = A[kkt], s[kkt]
+    k_lo = torch.clamp_max(torch.where(active[kkt], phi_b, 0.0).amin(-1),
+                           -1e-35)
+    u_a = torch.log(-k_lo)
+    u_b = torch.full_like(u_a, math.log(KAPPA_TINY))
+    for it in range(hp.n_bisect_k + 1):
+        last = it == hp.n_bisect_k
+        u = u_b if last else 0.5 * (u_a + u_b)
+        kap = -torch.exp(u)[:, None]
+        pinned = phi_b >= kap
+        live = Ak & ~pinned
+        lo = bm.expand(Ak.shape)
+        hi = torch.full(Ak.shape, B_max)
+        for _ in range(hp.n_bisect_b):
+            mid = 0.5 * (lo + hi)
+            ops += int(torch.where(live, phi_ops(torch, mid, d) + OPS_STEP,
+                                   0).sum())
+            under = ref.phi(mid, Q, d["gamma"], d["h"], d["p_tx"],
+                            d["N0"]) < kap
+            lo, hi = torch.where(under, mid, lo), torch.where(under, hi, mid)
+        ops += int(sk.sum()) + (0 if last else 4 * len(sk))
+        if last:
+            break
+        t = torch.where(Ak, torch.where(pinned, bm, 0.5 * (lo + hi)),
+                        0.0).sum(-1)
+        under = t < B_max
+        u_a, u_b = torch.where(under, u, u_a), torch.where(under, u_b, u)
+    return nbytes, ops + int(sk.sum()) * 4
+
+
+def bmin_work(K, hp):
+    """(bytes, operations) of one B_min launch: Γ, h, τ read; B_min and ok
+    written; per client the target and ceiling (6) and n_b bisection steps
+    of a rate evaluation."""
+    return 3 * 4 * K + 5 * K, K * (6 + hp.n_bisect_b * (OPS_RATE + OPS_STEP))
+
+
+def solver_check(torch, label, d, A, bm, ok, hp, errs):
+    """One population launch's rows through the kernel and the plain
+    version, on the same inputs: feasibility equal, J and B within
+    tolerance.  Returns the plain version's count of feasible rows."""
+    from repro_torch.kernels.jcsba_solver import ops, ref
+    J, B, feas = ops.population_objective(A, bm, ok, d, hp, want_B=True)
+    J_w, B_w, feas_w = ref.population_objective(A, bm, ok, d, hp,
+                                                want_B=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(feas, feas_w)
+            and torch.equal(torch.isinf(J), torch.isinf(J_w))):
+        raise AssertionError(f"population kernel, {label}: feasibility "
+                             f"differs")
+    fin = torch.isfinite(J_w)
+    if fin.any():                          # else every row is infeasible
+        check(torch, f"{label} J", J[fin], J_w[fin], TOL_SOLVER_J, errs)
+    check(torch, f"{label} B (Hz)", B, B_w, TOL_SOLVER_B, [])
+    return int(feas_w.sum())
+
+
+def bmin_check(torch, label, d, hp, errs):
+    """The B_min kernel against its plain version on one round: ok equal,
+    B_min within 1e-6.  Returns the plain version's (B_min, ok)."""
+    from repro_torch.kernels.jcsba_solver import ops, ref
+    args = (d["gamma"], d["h"], d["tau_rem"], d["B_max"], d["p_tx"],
+            d["N0"], hp)
+    bm, ok = ops.bmin(*args)
+    bm_w, ok_w = ref.bmin(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(ok, ok_w):
+        raise AssertionError(f"bmin kernel, {label}: ok differs from plain")
+    check(torch, f"{label} bmin", bm, bm_w, dict(rtol=1e-6, atol=0.0), errs)
+    print(f"[solver] {label}: ok {int(ok_w.sum())} of {ok_w.numel()} "
+          f"clients")
+    return bm_w, ok_w
+
+
+def solver_phase(torch, captured):
+    """Both solver kernels against their plain versions: B_min at each
+    round; every population launch of the main path's captured solve
+    (CREMA-D, K=10: P = 20, 24, 4 and 1 on the rows the search made) and of
+    the same solve with queues > 0, each on its own inputs; K = 100 and
+    1000 synthetic rounds at P = 24, 20, 4 and 1; one whole solve with the
+    kernels against one with the plain versions on the captured draws.
+    Returns the timing cases (at the main path, the launch of each P with
+    the most work) and the max abs errors (B_min, J)."""
+    from repro_torch.kernels.jcsba_solver.checks import (antibody_rows,
+                                                         plain_versions,
+                                                         synthetic_round)
+    from repro_torch.wireless.solver import torchsolver
+    data, seeds, draws, hp, launches = captured
+    K0 = data["Q"].shape[0]
+    # the paper's defaults keep the Lyapunov queues at 0, so the captured
+    # rounds take the all-Q≤0 branch; the same round with queues drawn in
+    # (0, 0.01) runs the κ/φ⁻¹ bisections at the main path's shape
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    data_q = dict(data, Q=torch.rand(K0, generator=g, device=DEVICE) * 0.01)
+    with record_launches() as rec:
+        torchsolver.solve_core(data_q, seeds, draws, hp)
+    errs = {k: [] for k in SOLVER_KERNELS}
+    rows = []
+    bmin_check(torch, f"main-path K={K0}", data, hp,
+               errs["jcsba_bmin_kernel"])
+    for tag, d, seen in (("", data, launches), (" Q>0", data_q, rec.seen)):
+        heaviest, nfeas = {}, 0
+        for i, (A, bm, ok, want_B) in enumerate(seen):
+            P = A.shape[0]
+            nfeas += solver_check(torch, f"launch {i} P={P}{tag}", d, A, bm,
+                                  ok, hp, errs["jcsba_population_kernel"])
+            w = solver_work(torch, d, A, bm, ok, hp)
+            if P not in heaviest or w[1] > heaviest[P][-1][1]:
+                heaviest[P] = (i, A, bm, ok, want_B, w)
+        print(f"[solver] main-path K={K0}{tag}: each of the solve's "
+              f"{len(seen)} population launches (P = "
+              + ", ".join(str(A.shape[0]) for A, *_ in seen)
+              + f") matches the plain version; {nfeas} of "
+              f"{sum(A.shape[0] for A, *_ in seen)} rows feasible")
+        if sorted(heaviest) != [1, 4, 20, 24]:
+            raise AssertionError(f"the solve launched P = "
+                                 f"{sorted(heaviest)}, expected 1, 4, 20 "
+                                 f"and 24")
+        for P in (20, 24, 4, 1):
+            i, A, bm, ok, want_B, w = heaviest[P]
+            rows.append((f"main-path K={K0}{tag} P={P} (launch {i})", d, A,
+                         bm, ok, want_B, w))
+    for K in (100, 1000):
+        d = torchsolver.to_device(synthetic_round(K, K), DEVICE)
+        bm, ok = bmin_check(torch, f"K={K}", d, hp,
+                            errs["jcsba_bmin_kernel"])
+        A24 = antibody_rows(K, 24, K + 24)
+        for P, A in ((24, A24), (20, antibody_rows(K, 20, K + 20)),
+                     (4, antibody_rows(K, 4, K + 4)), (1, A24[1:2])):
+            A = torch.as_tensor(A, device=DEVICE).contiguous()
+            nfeas = solver_check(torch, f"K={K} P={P}", d, A, bm, ok, hp,
+                                 errs["jcsba_population_kernel"])
+            print(f"[solver] K={K} P={P}: {nfeas} of {P} rows feasible")
+            rows.append((f"K={K} P={P}", d, A, bm, ok, False,
+                         solver_work(torch, d, A, bm, ok, hp)))
+    # one whole solve each way on the captured draws
+    for tag, d in (("", data), (" Q>0", data_q)):
+        t0 = time.perf_counter()
+        a, J, B = torchsolver.solve_core(d, seeds, draws, hp)
+        torch.cuda.synchronize()
+        t_kern = (time.perf_counter() - t0) * 1e3
+        with plain_versions():
+            t0 = time.perf_counter()
+            a_w, J_w, B_w = torchsolver.solve_core(d, seeds, draws, hp)
+            torch.cuda.synchronize()
+            t_plain = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(a, a_w):
+            raise AssertionError(f"solve: a* {a.tolist()} (kernels) != "
+                                 f"{a_w.tolist()} (plain)")
+        check(torch, "solve J* kernels vs plain", J, J_w, TOL_SOLVER_J, [])
+        check(torch, "solve B* kernels vs plain (Hz)", B, B_w, TOL_SOLVER_B,
+              [])
+        print(f"[solver] whole solve at the main path's K={K0}{tag} "
+              f"(S={hp.S}, G={hp.G}): a* equal {a.int().tolist()}; wall "
+              f"{t_kern:.3f} ms with the kernels, {t_plain:.3f} ms with the "
+              f"plain versions")
+    return rows, hp, {k: max(v) for k, v in errs.items()}
+
+
+def solver_timing_phase(torch, rows, hp):
+    """[time] rows for the two solver kernels at every solver case: the
+    population kernel as the search launches it (the solve's one
+    ``SolverArgs``; B only for the winner's row)."""
+    from repro_torch.kernels.jcsba_solver import ops, ref
+    out = {k: [] for k in SOLVER_KERNELS}
+    lib_txt = "none: no single PyTorch call computes this function"
+    seen_K = set()
+    for label, d, A, bm, ok, want_B, work_ in rows:
+        K = A.shape[1]
+        args = ops.launch_args(d, hp)
+        if K not in seen_K:
+            seen_K.add(K)
+            out["jcsba_bmin_kernel"].append(time_row(
+                torch, "jcsba_bmin_kernel", label.split(" P=")[0],
+                f"K={K}",
+                lambda: ops._launch_bmin(d["gamma"], d["h"], d["tau_rem"],
+                                         d["B_max"], d["p_tx"], d["N0"], hp,
+                                         args),
+                lambda: ref.bmin(d["gamma"], d["h"], d["tau_rem"],
+                                 d["B_max"], d["p_tx"], d["N0"], hp),
+                None, lib_txt, bmin_work(K, hp)))
+        out["jcsba_population_kernel"].append(time_row(
+            torch, "jcsba_population_kernel", label,
+            f"P={A.shape[0]} K={K} M={d['zeta2'].shape[0]}"
+            + (" with B" if want_B else ""),
+            lambda: ops._launch_population(A, bm, ok, d, hp, want_B, args),
+            lambda: ref.population_objective(A, bm, ok, d, hp, want_B),
+            None, lib_txt, work_, plain_iters=3))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 def floor_ms(torch):
@@ -729,7 +1116,7 @@ def timing_phase(torch, ops, ref, cases):
 
 
 def time_row(torch, name, label, shape_txt, kern, plain, lib, lib_txt,
-             work_, regime=None, peak_flops=PEAK_F32_FLOPS):
+             work_, regime=None, peak_flops=PEAK_F32_FLOPS, plain_iters=20):
     """``device_ms`` is every device kernel one call of the wrapper
     launches, summed (a call of a kernel in two launches is charged for
     both)."""
@@ -738,7 +1125,8 @@ def time_row(torch, name, label, shape_txt, kern, plain, lib, lib_txt,
         shape_txt = f"{shape_txt} ({regime})"
     row = {"ms": time_ms(torch, kern),
            "device_ms": device_ms(torch, kern),
-           "plain_ms": time_ms(torch, plain, iters=20, warmup=3),
+           "plain_ms": time_ms(torch, plain, iters=plain_iters,
+                               warmup=min(3, plain_iters)),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": (time_ms(torch, lib) if lib else None),
            "library_device_ms": (device_ms(torch, lib) if lib else None),
@@ -833,6 +1221,7 @@ def main() -> int:
     from repro_torch.fl.runtime import MFLExperiment
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fusion_loss import ops, ref
+    from repro_torch.kernels.jcsba_solver import ops as js_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -845,12 +1234,12 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def reset_counts():
-        for m in (ops, fa_ops, ssd_ops):
+        for m in (ops, fa_ops, ssd_ops, js_ops):
             m.reset_launch_counts()
 
     def read_counts():
         return {**ops.launch_counts(), **fa_ops.launch_counts(),
-                **ssd_ops.launch_counts()}
+                **ssd_ops.launch_counts(), **js_ops.launch_counts()}
 
     # phase 1: build
     build_phase()
@@ -874,13 +1263,21 @@ def main() -> int:
     # phase 3: the main path, counters set to 0 just before and read after
     # each run
     launches = {k: 0 for k in read_counts()}
+    capture = SolverCapture()
     for arch, dataset, rounds in MAIN_PATH:
         label = f"{arch}/{dataset}"
         reset_counts()
-        run_experiment(torch, exps[arch, dataset], metric_keys, label,
-                       rounds)
+        if (arch, dataset) == ("lstm-cnn", "crema_d"):
+            with capture:
+                run_experiment(torch, exps[arch, dataset], metric_keys,
+                               label, rounds)
+        else:
+            run_experiment(torch, exps[arch, dataset], metric_keys, label,
+                           rounds)
         now = read_counts()
-        print(f"[main] {label} launches ({rounds} rounds): {now}")
+        print(f"[main] {label} launches ({rounds} rounds): {now}; solver "
+              f"kernels a round: "
+              + ", ".join(f"{k} {now[k] / rounds:g}" for k in SOLVER_KERNELS))
         for name in ARCH_KERNELS[arch]:
             if not now[name]:
                 raise AssertionError(f"{name} was not launched by {label}")
@@ -892,8 +1289,15 @@ def main() -> int:
         remat_phase(torch, MFLExperiment, (reset_counts, read_counts), arch)
     for arch, dataset, rounds in MAIN_PATH:
         twin_phase(torch, MFLExperiment, arch, dataset, min(rounds, 2))
+    solver_twin_phase(torch, MFLExperiment)
+    seq_round_phase(torch, MFLExperiment, exps["lstm-cnn", "crema_d"])
+    baseline_phase(torch, MFLExperiment, (reset_counts, read_counts))
     for arch in ("lstm-cnn", "transformer", "ssd"):
         profile_round(torch, exps[arch, "crema_d"], f"{arch}/crema_d")
+
+    # phase 3b: the solver kernels at the main path's captured round
+    solver_rows_, hp, solver_err = solver_phase(torch, capture.seen)
+    max_err.update(solver_err)
 
     # phase 4: times
     floor = floor_ms(torch)
@@ -902,6 +1306,7 @@ def main() -> int:
           + f" ({card})")
     times = timing_phase(torch, ops, ref, cases)
     bb_times = backbone_timing_phase(torch, attn, ssd)
+    bb_times.update(solver_timing_phase(torch, solver_rows_, hp))
 
     def entry(name):
         rows = (bb_times[name] if name in bb_times else
@@ -915,6 +1320,9 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "shape": row["shape"],
             "other_shapes": rows[1:],
+            **({"tpu_kernel": "none: XLA fuses jaxsolver.solve_core; the "
+                              "JAX package has no pallas_call for it"}
+               if name in SOLVER_KERNELS else {}),
         }
 
     # the partial reduce runs only where gsq/gdot are asked for

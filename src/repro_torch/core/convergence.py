@@ -21,7 +21,7 @@ brings only the [K] norms to the host.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -80,6 +80,29 @@ class BoundState:
                                     + (1 - self.staleness) * mean_d)
 
     # ------------------------------------------------------------------
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        """Dense-array view of the tracker state for the batched solver:
+        everything ``a1_a2`` / ``objective`` read from Python dicts, packed
+        into [M]/[M, K] arrays so the Theorem-1 term can be evaluated for a
+        whole antibody population at once (``objective_batched``).  A fresh
+        snapshot must be taken every round — ζ/δ move whenever
+        ``update_stacked`` runs."""
+        M, K = len(self.mods), self.K
+        has = np.zeros((M, K), bool)
+        for i, m in enumerate(self.mods):
+            for k in range(K):
+                has[i, k] = m in self.client_mods[k]
+        return {
+            "zeta2": np.array([self.zeta[m] ** 2 for m in self.mods]),
+            "delta2": np.stack([np.square(self.delta[m])
+                                for m in self.mods]) if M else
+                      np.zeros((0, K)),
+            "wbar": np.stack([self.w_bar[m] for m in self.mods]) if M else
+                    np.zeros((0, K)),
+            "has": has,
+            "D": self.D,
+        }
+
     def a1_a2(self, a: np.ndarray) -> tuple:
         """A₁, A₂ of Theorem 1 for participation vector a ∈ {0,1}^K."""
         a = np.asarray(a, np.float64)
@@ -120,3 +143,39 @@ class BoundState:
         c = (2 * self.eta - gamma * self.eta ** 2) / 2.0
         return (self.eta * self.rho * float(np.sqrt(A1 + A2))
                 - c * covered)
+
+
+# ---------------------------------------------------------------------------
+# The Theorem-1 term for a whole antibody population A ∈ {0,1}^{P×K}, in
+# float32 tensors on A's device — the plain version the solver's population
+# kernel (kernels/jcsba_solver) holds its bound term against.
+# ---------------------------------------------------------------------------
+def a1_a2_batched(A, zeta2, delta2, wbar, has, D):
+    """A₁, A₂ of Theorem 1 for a population.
+
+    A: [P, K] (bool or 0/1 float); snapshot tensors as from
+    ``BoundState.snapshot()`` (``has`` bool).  Returns (A1 [P], A2 [P])."""
+    Af = torch.as_tensor(A).to(torch.float32)
+    part = has[None] & (Af[:, None, :] > 0.5)             # [P, M, K]
+    sched = part.any(-1)                                  # m ∈ M^t   [P, M]
+    A1 = ((~sched) * zeta2).sum(-1)
+    wt_raw = torch.where(part, D, 0.0)                    # w^t_{k,m} numerator
+    denom = wt_raw.sum(-1, keepdim=True)
+    wt = torch.where(denom > 0, wt_raw / torch.clamp_min(denom, 1e-30), 0.0)
+    cover = (Af[:, None, :] * wbar).sum(-1)               # Σ a_k w̄_{k,m}
+    coeff = wt + wbar - 2.0 * Af[:, None, :] * wbar
+    A2_m = 2.0 * (1.0 - cover) * (coeff * delta2).sum(-1)
+    A2 = torch.clamp_min((sched * A2_m).sum(-1), 0.0)
+    return A1, A2
+
+
+def objective_batched(A, zeta2, delta2, wbar, has, D,
+                      eta: float, rho: float, gamma: float = 1.0):
+    """Population twin of ``BoundState.objective`` — ηρ√(A₁+A₂) minus the
+    descent credit of covered modalities.  Returns [P] float32."""
+    Af = torch.as_tensor(A).to(torch.float32)
+    A1, A2 = a1_a2_batched(Af, zeta2, delta2, wbar, has, D)
+    sched = (has[None] & (Af[:, None, :] > 0.5)).any(-1)
+    covered = (sched * zeta2).sum(-1)
+    c = (2 * eta - gamma * eta ** 2) / 2.0
+    return eta * rho * torch.sqrt(A1 + A2) - c * covered

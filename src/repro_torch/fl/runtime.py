@@ -2,8 +2,12 @@
 
 Per communication round t:
   1. redraw channel gains h_k;
-  2. the server schedules clients and allocates bandwidth by JCSBA (the
-     host immune search of ``wireless.schedulers``);
+  2. the server schedules clients and allocates bandwidth (JCSBA or a
+     baseline, ``wireless.schedulers``).  JCSBA runs on the
+     population-batched solver (``wireless.solver.torchsolver``) on the
+     experiment's device; the engine spec's backend token
+     (``"batched:np"`` / ``"batched:seq"``) selects its float64 numpy
+     mirror or the original sequential scalar path;
   3. scheduled clients run the local update (one BGD epoch, Eq. 7) — clients
      whose latency constraint is violated under the chosen bandwidth are
      *transmission failures*: they consume energy but contribute no update;
@@ -15,19 +19,24 @@ Step 3 runs all K clients' updates as one cohort step over a dense,
 device-resident client stack (``data.partition.StackedClients``): every
 modality is materialised for every client at a fixed ``max_batch``, padding
 is masked out of the loss by a ``sample_mask``, and a per-modality 0/1
-upload mask [K] (scheduled ∧ no transmission failure ∧ owns the modality)
-zeroes the loss — hence the gradient — of everything that is not uploaded.
-Unscheduled clients still run in the stack with avail = 0.
+upload mask [K] (scheduled ∧ no transmission failure ∧ owns the modality ∧
+did not drop it) zeroes the loss — hence the gradient — of everything that
+is not uploaded.  Unscheduled clients still run in the stack with avail = 0.
 
 The engine spec keeps the JAX package's grammar,
 ``"<loop>[:<token>[+<token>...]]"``.  The port runs the ``batched`` loop
-with the ``seq`` JCSBA solver; the ``pallas`` token selects the CUDA
-fusion-loss kernel and, for the transformer/SSD backbones (``arch=``), the
+with every JCSBA solver backend (``jax`` — the default —, ``np``, ``seq``)
+and every scheduler; the ``pallas`` token selects the CUDA fusion-loss
+kernel and, for the transformer/SSD backbones (``arch=``), the
 flash-attention / SSD kernels in their mixers; ``remat`` checkpoints the
-cohort forward.  The default is ``"batched:seq+pallas"``.  The run
-consumes the experiment's numpy ``Generator`` in the JAX package's order —
-channel draw, K client seeds, immune search — so participants match the
-JAX package round by round.
+cohort forward.  The default is ``"batched:pallas"``, the JAX package's
+main path with the fusion-loss kernel.  The run consumes the experiment's
+numpy ``Generator`` in the JAX package's order — channel draw, the
+scheduler's one seed draw (or the ``seq`` search's draws), K client seeds.
+The scheduler's random bits come from a draw source seeded by its draw
+(``wireless.schedulers``); with the JAX package's bits injected
+(``scheduler_kwargs={"draw_source": ...}``) participants match the JAX
+package round by round.
 """
 from __future__ import annotations
 
@@ -60,15 +69,20 @@ class RoundRecord:
     energy_total: float
     metrics: Dict[str, float]
     sched_time_s: float
+    #: modality -> sorted clients that dropped it this round ([28]'s
+    #: modality-dropout baseline; empty for every other policy)
+    dropped: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def make(cls, round, participants, failures, energy_total, metrics,
-             sched_time_s) -> "RoundRecord":
+             sched_time_s, dropped=None) -> "RoundRecord":
         """Normalises every field to plain Python, so records are JSON-safe."""
         return cls(int(round), [int(v) for v in participants],
                    [int(v) for v in failures], float(energy_total),
                    {k: float(v) for k, v in metrics.items()},
-                   float(sched_time_s))
+                   float(sched_time_s),
+                   {str(m): sorted(int(k) for k in ks)
+                    for m, ks in (dropped or {}).items()})
 
 
 #: valid ``engine=`` loop names, in increasing fusion order
@@ -118,7 +132,7 @@ class MFLExperiment:
                  eta: float = 0.05, V: float = 1.0, seed: int = 0,
                  params: Optional[WirelessParams] = None,
                  scheduler_kwargs: Optional[dict] = None,
-                 eval_every: int = 1, engine: str = "batched:seq+pallas",
+                 eval_every: int = 1, engine: str = "batched:pallas",
                  arch: str = "lstm-cnn", device="cuda"):
         self.device = resolve_device(device)
         (loop, solver_backend, loss_backend, remat, use_kernels,
@@ -158,10 +172,12 @@ class MFLExperiment:
         self.bound = BoundState(K, self.all_mods, self.client_mods, w_bar,
                                 self.data_sizes, eta=eta)
         kw = dict(scheduler_kwargs or {})
+        kw.setdefault("device", self.device)
         if scheduler == "jcsba":
             kw.setdefault("V", V)
             kw.setdefault("solver", solver_backend)
         self.scheduler: Scheduler = make_scheduler(scheduler, self.rng, **kw)
+        self.scheduler.bind(K, self.client_mods)
         self.model_dist = np.zeros(K)
         self.history: List[RoundRecord] = []
         self._round = 0
@@ -186,15 +202,21 @@ class MFLExperiment:
 
         # --- local updates + aggregation (Eq. 12) + trackers ---
         seeds = self._draw_client_seeds()
-        self.last_weights = self._round_batched(participants, seeds)
+        self.last_weights = self._round_batched(dec, participants, seeds)
         self.queues.step(dec.a.astype(float), ecom, self.cost.e_cmp,
                          self.params.E_add)
 
         metrics = {}
         if t % self.eval_every == 0:
             metrics = self.adapter.evaluate(self.global_params, self.test_ds)
+        dropped: Dict[str, List[int]] = {}
+        if dec.dropout_modality:
+            for k, m in enumerate(dec.dropout_modality):
+                if m is not None:
+                    dropped.setdefault(m, []).append(k)
         rec = RoundRecord.make(t, participants, failures,
-                               self.queues.spent.sum(), metrics, sched_time)
+                               self.queues.spent.sum(), metrics, sched_time,
+                               dropped)
         self.history.append(rec)
         self._round += 1
         return rec
@@ -205,13 +227,19 @@ class MFLExperiment:
         return np.array([self.rng.integers(2 ** 31)
                          for _ in range(self.params.K)], np.uint32)
 
-    def _round_batched(self, participants,
+    def _round_batched(self, dec, participants,
                        seeds: np.ndarray) -> Dict[str, np.ndarray]:
-        """The whole cohort's updates as one cohort step."""
+        """The whole cohort's updates as one cohort step; a dropped modality
+        leaves the client's upload (unless it was the client's only one)."""
         K = self.params.K
         upload = {m: np.zeros(K, bool) for m in self.all_mods}
         for k in participants:
-            for m in self.client_mods[k]:
+            drop = (dec.dropout_modality[k]
+                    if dec.dropout_modality is not None else None)
+            mods = tuple(m for m in self.client_mods[k] if m != drop)
+            if not mods:
+                mods = tuple(self.client_mods[k])
+            for m in mods:
                 upload[m][k] = True
         if not len(participants):
             return agg.stacked_weights(self.data_sizes, upload)

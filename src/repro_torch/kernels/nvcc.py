@@ -1,7 +1,7 @@
 """Build and load one CUDA source as a shared library with a C interface.
 
-Each kernel package (``fusion_loss``, ``flash_attention``, ``ssd_scan``)
-keeps its ``csrc/<name>.cu`` and a ``build.py`` that declares a
+Each kernel package (``fusion_loss``, ``flash_attention``, ``ssd_scan``,
+``jcsba_solver``) keeps its ``csrc/<name>.cu`` and a ``build.py`` that declares a
 ``CudaLibrary``.  ``nvcc`` compiles the source for ``sm_90a`` at first use,
 from the sources in this repository only, into ``build/`` beside the
 package (git-ignored).  The library name carries a hash of the source and
@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,12 +41,15 @@ class CudaLibrary:
     """One ``.cu`` source, its build into ``build/`` and its ctypes
     handle.  ``signatures`` maps each exported function to its argument
     types; every function returns a C ``int`` (a ``cudaError_t``, or a
-    negative code for arguments the kernel refuses)."""
+    negative code for arguments the kernel refuses).  ``flags`` are added
+    to ``NVCC_FLAGS`` for this source only."""
 
-    def __init__(self, source: Path, signatures: Dict[str, List]):
+    def __init__(self, source: Path, signatures: Dict[str, List],
+                 flags: Sequence[str] = ()):
         self.source = Path(source)
         self.build_dir = self.source.parent.parent / "build"
         self.signatures = signatures
+        self.flags = (*NVCC_FLAGS, *flags)
         self._lib = None
 
     def build(self, verbose: bool = False) -> Path:
@@ -54,13 +57,13 @@ class CudaLibrary:
         With ``verbose`` the compiler's output (``-Xptxas -v``: registers,
         shared memory and spills per kernel) is printed in one piece."""
         digest = hashlib.sha1(self.source.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                              + " ".join(self.flags).encode()).hexdigest()
         lib = self.build_dir / f"lib{self.source.stem}_{digest[:16]}.so"
         if lib.exists():
             return lib
         self.build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"

@@ -17,9 +17,15 @@ from repro_torch.fl.runtime import MFLExperiment
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.fusion_loss import ops, ref
+from repro_torch.kernels.jcsba_solver import ops as solver_ops
+from repro_torch.kernels.jcsba_solver.checks import (antibody_rows,
+                                                     plain_versions,
+                                                     synthetic_round)
+from repro_torch.kernels.jcsba_solver import ref as solver_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models import layers, mamba2
+from repro_torch.wireless.schedulers import make_scheduler
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -63,6 +69,13 @@ def test_entry_points_raise_without_cuda(no_cuda):
     for arch in ("lstm-cnn", "transformer", "ssd"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MFLExperiment("crema_d", K=4, n_samples=80, arch=arch)
+    # the default engine (JCSBA on the torch solver) and the baselines
+    for sched in ("jcsba", "random", "dropout"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            MFLExperiment("crema_d", scheduler=sched, K=4, n_samples=80,
+                          device="cuda", engine="batched:pallas")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_scheduler(sched, np.random.default_rng(0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -71,25 +84,30 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 def _reset_all():
-    for m in (ops, fa_ops, ssd_ops):
+    for m in (ops, fa_ops, ssd_ops, solver_ops):
         m.reset_launch_counts()
 
 
 def _all_counts():
     return {**ops.launch_counts(), **fa_ops.launch_counts(),
-            **ssd_ops.launch_counts()}
+            **ssd_ops.launch_counts(), **solver_ops.launch_counts()}
 
 
 @pytest.mark.parametrize("arch", ["lstm-cnn", "transformer", "ssd"])
 def test_cpu_run_never_launches_a_kernel(arch):
+    """The default engine on the CPU: the JCSBA solve and the cohort step
+    run their plain versions and launch no kernel."""
     _reset_all()
     exp = MFLExperiment("crema_d", K=3, n_samples=60, device="cpu",
-                        engine="batched:seq+pallas", arch=arch)
+                        engine="batched:pallas", arch=arch,
+                        scheduler_kwargs={"immune_kwargs": {"S": 6, "G": 2}})
     exp.run(1)
     assert exp.history[0].participants
     assert _all_counts() == {"fusion_loss_fwd": 0, "fusion_loss_bwd": 0,
                              "fusion_loss_reduce": 0,
-                             "flash_attention_fwd": 0, "ssd_chunk_fwd": 0}
+                             "flash_attention_fwd": 0, "ssd_chunk_fwd": 0,
+                             "jcsba_bmin_kernel": 0,
+                             "jcsba_population_kernel": 0}
 
 
 @pytest.mark.gpu
@@ -127,12 +145,15 @@ def test_kernel_matches_plain_on_card(cuda):
 
 @pytest.mark.gpu
 def test_card_run_goes_through_the_kernels(cuda):
-    ops.reset_launch_counts()
+    _reset_all()
     MFLExperiment("crema_d", K=4, n_samples=160).run(1)
-    counts = ops.launch_counts()
+    counts = _all_counts()
     assert counts["fusion_loss_fwd"] > 0 and counts["fusion_loss_bwd"] > 0
     # the training step reads no gsq/gdot, so it launches no reduce
     assert counts["fusion_loss_reduce"] == 0
+    # one B_min, pop0 + 2 a generation + the winner's B (default hp)
+    assert counts["jcsba_bmin_kernel"] == 1
+    assert counts["jcsba_population_kernel"] == 1 + 2 * 10 + 1
 
 
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
@@ -443,3 +464,128 @@ def test_card_backbone_round_goes_through_the_kernels(cuda, arch, kernel):
     counts = _all_counts()
     assert counts[kernel] > 0
     assert counts["fusion_loss_fwd"] > 0 and counts["fusion_loss_bwd"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the JCSBA solver kernels
+# ---------------------------------------------------------------------------
+def _solver_kernels_against_plain(data, A, hp=None):
+    """Both kernels against their plain versions on the same card tensors:
+    B_min and ok; J (rel 1e-4, abs 1e-6), feasibility (equal) and B (rtol
+    1e-3, atol 2 Hz) with and without B; returns the plain (J, B, feas)."""
+    from repro_torch.wireless.solver import SolverHyper, torchsolver
+    hp = hp or SolverHyper()
+    d = torchsolver.to_device(data, "cuda")
+    solver_ops.reset_launch_counts()
+    bm, ok = solver_ops.bmin(d["gamma"], d["h"], d["tau_rem"], d["B_max"],
+                             d["p_tx"], d["N0"], hp)
+    bm_w, ok_w = solver_ref.bmin(d["gamma"], d["h"], d["tau_rem"],
+                                 d["B_max"], d["p_tx"], d["N0"], hp)
+    assert torch.equal(ok, ok_w)
+    torch.testing.assert_close(bm, bm_w, rtol=1e-6, atol=0.0)
+    At = torch.as_tensor(A, device="cuda")
+    J, B, feas = solver_ops.population_objective(At, bm_w, ok_w, d, hp,
+                                                 want_B=True)
+    J2, none, feas2 = solver_ops.population_objective(At, bm_w, ok_w, d, hp)
+    J_w, B_w, feas_w = solver_ref.population_objective(At, bm_w, ok_w, d,
+                                                       hp, want_B=True)
+    torch.cuda.synchronize()
+    assert solver_ops.launch_counts() == {"jcsba_bmin_kernel": 1,
+                                          "jcsba_population_kernel": 2}
+    assert none is None and torch.equal(J, J2) and torch.equal(feas, feas2)
+    assert torch.equal(feas, feas_w)
+    assert torch.equal(torch.isinf(J), torch.isinf(J_w))
+    fin = torch.isfinite(J_w)
+    torch.testing.assert_close(J[fin], J_w[fin], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(B, B_w, rtol=1e-3, atol=2.0)
+    assert (B[~feas] == 0).all() and (B[~At] == 0).all()
+    return J_w.cpu().numpy(), B_w.cpu().numpy(), feas_w.cpu().numpy(), \
+        bm_w.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [6, 10, 100, 1000])
+@pytest.mark.parametrize("P", [1, 20, 24])
+def test_solver_kernels_match_plain_on_card(cuda, K, P):
+    data = synthetic_round(K, seed=K + P)
+    J, B, feas, _ = _solver_kernels_against_plain(
+        data, antibody_rows(K, P, K * P))
+    assert feas[0] and J[0] == J[0]                 # the empty row
+    if P > 1:
+        assert not feas[-1]                         # the full row
+
+
+def _branch_case(K):
+    """Queues and rows that take each branch of the allocation: clients 0-1
+    with Q = 0, 2-3 with Q = 1e-22 (φ(B_min) above the whole κ bracket, so
+    every one pinned), 4 with Q = 1e-12 (pinned beside active clients), the
+    rest active; the last client latency-infeasible.  Rows: empty; all
+    Q = 0; all pinned; pinned beside an active client; the KKT split of two
+    active clients; one; the infeasible client; and it with another."""
+    Q = np.full(K, 5e-3)
+    Q[[0, 1]] = 0.0
+    Q[[2, 3]] = 1e-22
+    Q[4] = 1e-12
+    A = np.zeros((8, K), bool)
+    for i, row in enumerate(([], [0, 1], [2, 3], [1, 4, 5], [5, 6], [5],
+                             [K - 1], [0, K - 1])):
+        A[i, row] = True
+    return Q, A
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [8, 10])
+def test_solver_kernel_branches_match_plain_on_card(cuda, K):
+    Q, A = _branch_case(K)
+    data = synthetic_round(K, seed=1, Q=Q)
+    J, B, feas, bm = _solver_kernels_against_plain(data, A)
+    assert list(feas) == [True] * 6 + [False] * 2
+    share = (data["B_max"] - bm[[0, 1]].sum()) / 2
+    np.testing.assert_allclose(B[1][[0, 1]], bm[[0, 1]] + share, rtol=1e-5)
+    share = (data["B_max"] - bm[[2, 3]].sum()) / 2
+    np.testing.assert_allclose(B[2][[2, 3]], bm[[2, 3]] + share, rtol=1e-5)
+    assert B[3][1] == bm[1] and B[3][4] == bm[4] and B[3][5] > bm[5]
+    # Σ B_min of row 4 at the budget: B = B_min
+    at_eq = synthetic_round(K, seed=1, Q=Q,
+                         B_max=float(bm[[5, 6]].sum(dtype=np.float32)))
+    _, B, feas, bm = _solver_kernels_against_plain(at_eq, A[4:5])
+    assert feas[0]
+    np.testing.assert_array_equal(B[0][[5, 6]], bm[[5, 6]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1025, 5000, 8192])
+def test_solver_kernel_takes_several_clients_a_thread(cuda, K):
+    """K past 1024 threads: 2 and 8 clients a thread in one block."""
+    assert solver_ops.plan(K)[1] == (2 if K == 1025 else 8)
+    data = synthetic_round(K, seed=K)
+    _solver_kernels_against_plain(data, antibody_rows(K, 6, K))
+
+
+@pytest.mark.gpu
+def test_solver_kernel_refuses_past_one_block(cuda):
+    from repro_torch.wireless.solver import SolverHyper, torchsolver
+    d = torchsolver.to_device(synthetic_round(8193, 0), "cuda")
+    bm = torch.ones(8193, device="cuda")
+    with pytest.raises(ValueError, match="8192"):
+        solver_ops.population_objective(
+            torch.zeros((2, 8193), dtype=torch.bool, device="cuda"), bm,
+            bm > 0, d, SolverHyper())
+
+
+@pytest.mark.gpu
+def test_solve_on_card_matches_plain_solve(cuda):
+    """One whole solve with the kernels and one with the plain versions on
+    the card, on the same draws: the same a*; J and B within tolerance."""
+    from repro_torch.wireless.solver import SolverHyper, torchsolver
+    hp = SolverHyper()
+    d = torchsolver.to_device(synthetic_round(10, 3), "cuda")
+    draws = torchsolver.make_draws(
+        torch.Generator(device="cuda").manual_seed(5), 10, hp)
+    seeds = torch.zeros((2, 10), dtype=torch.bool, device="cuda")
+    a, J, B = torchsolver.solve_core(d, seeds, draws, hp)
+    with plain_versions():
+        a_w, J_w, B_w = torchsolver.solve_core(d, seeds, draws, hp)
+    assert torch.equal(a, a_w)
+    torch.testing.assert_close(J, J_w, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(B, B_w, rtol=1e-3, atol=2.0)
