@@ -15,6 +15,7 @@ Phases, each of which fails the run when it fails:
    and float64:
    * the fusion loss at the shape each paper experiment's own client stack
      gives it (labels, sample mask and modality ownership taken from it),
+     at the ``seq`` loop's one-client shard (K=1, T = the shard),
      at an LM-like shape with one broadcast head (K=1, T=512, V=32000,
      M=3) and at the JAX package's fusion sweep (tests/test_kernels.py),
      each of the last two in float32 and bfloat16; the Python plan's
@@ -35,6 +36,19 @@ Phases, each of which fails the run when it fails:
    bits); one ``batched:seq+pallas`` CREMA-D round (the host search) and
    one round of each baseline scheduler; profile one paper, one
    transformer and one SSD round;
+3a. ``[seq]``: paper CREMA-D on the ``seq:pallas`` loop (one local update
+   a scheduled client) for 2 rounds against a ``batched:pallas`` twin on
+   the same seed: same participants, params within 1e-4, one fusion-loss
+   forward and one backward launch a participant; both loops' round times.
+   ``[fused]``: paper CREMA-D on ``fused:pallas`` (the round captured as a
+   CUDA graph, one graph with eval and one without) for 8 rounds stepwise
+   and 2 + 6 through ``run_scanned``, both held against the round's body run
+   eagerly on the card on the same inputs (same participants, params
+   within 1e-4), the eager body against the CPU on CPU-drawn bits, and 2
+   rounds each with the transformer and SSD backbones; launches counted
+   as each graph's captured launches times its replays; round times after
+   capture, capture seconds, and one profiled round a model whose trace
+   must show every kernel of its path;
 3b. ``[solver]``: the two JCSBA solver kernels against their plain versions
    on the round data the paper CREMA-D run gave the solver (K=10, captured)
    and at K = 100 and 1000, rows of 1-5 clients, P = 1, 20, 24; one whole
@@ -105,6 +119,18 @@ ARCH_KERNELS = {"lstm-cnn": ("fusion_loss_fwd", "fusion_loss_bwd"),
 ARCH_KERNELS = {a: ks + SOLVER_KERNELS for a, ks in ARCH_KERNELS.items()}
 #: the baseline schedulers, one CREMA-D round each
 BASELINES = ("random", "round_robin", "selection", "dropout")
+
+#: the seq and fused loops' phases: paper CREMA-D at the main path's size;
+#: the fused runs evaluate every other round, so both graphs run
+SEQ_ROUNDS = 2
+FUSED_ROUNDS = 8
+FUSED_KW = dict(K=10, n_samples=1200, engine="fused:pallas", eval_every=2)
+#: each wrapper's kernels by their names in a profiler trace
+TRACE_NAMES = {"fusion_loss_fwd": "fusion_fwd_",
+               "fusion_loss_bwd": "fusion_bwd_",
+               "flash_attention_fwd": "attn_", "ssd_chunk_fwd": "ssd_",
+               "jcsba_bmin_kernel": "jcsba_bmin_kernel",
+               "jcsba_population_kernel": "jcsba_population_kernel"}
 
 #: the main path: (arch, dataset, rounds) at MFLExperiment's defaults; the
 #: paper runs are cut from 5 + 2 rounds to 3 + 1 to fit the backbones in
@@ -268,6 +294,24 @@ def path_case(torch, exp, seed):
                      (0,) * len(exp.all_mods), seed)
 
 
+def seq_case(torch, exp, seed, mods=None):
+    """The shape the ``seq`` loop gives the kernels: one client on its own
+    unpadded shard, K=1, every row available, with one head for each of
+    the client's modalities (``local_update`` passes only those): the first
+    client that owns exactly ``mods`` (default: every modality)."""
+    want = tuple(sorted(mods or exp.all_mods))
+    k = next((i for i, own in enumerate(exp.client_mods)
+              if tuple(sorted(own)) == want), None)
+    if k is None:
+        raise AssertionError(f"no client owns exactly {want}")
+    labels = np.asarray(exp.clients[k].dataset.labels)[None]
+    T = labels.shape[1]
+    M = len(want)
+    return make_case(torch, labels, np.ones((M, 1, T), np.float32),
+                     np.ones((1, T), np.float32), exp.train_ds.n_classes,
+                     (0,) * M, seed)
+
+
 def lm_case(torch, dtype=None):
     """An LM-like shape the main path does not run, with one broadcast
     head: K=1, T=512, V=32000, M=3, seg=(0, 0, 128)."""
@@ -329,6 +373,12 @@ def kernel_phase(torch, ops, ref, exps):
     from repro_torch.kernels.fusion_loss.build import load
     cases = {name: path_case(torch, exp, seed=1 + i)
              for i, (name, exp) in enumerate(exps.items())}
+    cases["crema_d/seq"] = seq_case(torch, exps["crema_d"], seed=9)
+    # a unimodal participant's step: M=1, the rows regime's one-head
+    # instances
+    for i, m in enumerate(exps["crema_d"].all_mods):
+        cases[f"crema_d/seq {m}"] = seq_case(torch, exps["crema_d"],
+                                             seed=20 + i, mods=(m,))
     cases["lm"] = lm_case(torch)
     cases["lm/bf16"] = lm_case(torch, torch.bfloat16)
     for i, (M, T, V) in enumerate(FUSION_SWEEP):
@@ -642,7 +692,7 @@ def profile_round(torch, exp, label):
     if not events:
         print(f"[profile] {label}: the trace shows no device events: device "
               f"busy share not measured")
-        return
+        return set()
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     launches = sum(e.count for e in events)
     print(f"[profile] {label} round {rec.round}: wall {wall_ms:.3f} ms, "
@@ -652,6 +702,7 @@ def profile_round(torch, exp, label):
     for e in sorted(events, key=_device_us, reverse=True)[:8]:
         print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    return {e.key for e in events}
 
 
 def twin_phase(torch, MFLExperiment, arch, dataset, rounds):
@@ -774,6 +825,219 @@ def solver_twin_phase(torch, MFLExperiment, rounds=2):
           f"params max|err| {err:.3e} (tol 1e-4)")
     if err > 1e-4:
         raise AssertionError("jcsba twin runs disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 3a: the seq and fused loops
+# ---------------------------------------------------------------------------
+def _params_err(a, b):
+    from repro_torch.core.trees import tree_leaves
+    return max(float((x - y).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _timed_rounds(torch, exp, rounds):
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        exp.run_round()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def seq_phase(torch, MFLExperiment, counters):
+    """Paper CREMA-D on ``seq:pallas`` against a ``batched:pallas`` twin
+    (same seed, same draws): same participants, params within 1e-4, one
+    fusion-loss forward and backward launch a participant.  Returns the
+    seq run's launches."""
+    reset, read = counters
+    seq = MFLExperiment("crema_d", **dict(MAIN_KW, engine="seq:pallas"))
+    bat = MFLExperiment("crema_d", **MAIN_KW)
+    reset()
+    t_seq = _timed_rounds(torch, seq, SEQ_ROUNDS)
+    counts = read()
+    t_bat = _timed_rounds(torch, bat, SEQ_ROUNDS)
+    parts = [r.participants for r in seq.history]
+    if parts != [r.participants for r in bat.history]:
+        raise AssertionError(f"seq participants {parts} != batched "
+                             f"{[r.participants for r in bat.history]}")
+    err = _params_err(seq.global_params, bat.global_params)
+    n = sum(len(p) for p in parts)
+    print(f"[seq] crema_d K=10 n=1200 seq:pallas rounds "
+          + ", ".join(f"{t:.3f}" for t in t_seq) + " ms; batched:pallas "
+          + ", ".join(f"{t:.3f}" for t in t_bat) + f" ms; participants "
+          f"{parts} (equal); params max|err| {err:.3e} (tol 1e-4); "
+          f"launches {({k: v for k, v in counts.items() if v})} for {n} "
+          f"participants")
+    if err > 1e-4:
+        raise AssertionError("seq and batched disagree")
+    if not n or not (counts["fusion_loss_fwd"] == counts["fusion_loss_bwd"]
+                     == n):
+        raise AssertionError("seq: not one fusion-loss forward and backward "
+                             "launch a participant")
+    return counts
+
+
+def graph_counts(eng):
+    """Kernel launches of the fused runs: each graph's captured launches
+    times its replays."""
+    out = {}
+    for g, launched in eng.graph_launches.items():
+        for k, v in launched.items():
+            out[k] = out.get(k, 0) + v * eng.replays[g]
+    return out
+
+
+def check_trace(names, kernels, label):
+    """Every kernel in ``kernels`` by its trace name among ``names``."""
+    missing = [k for k in kernels
+               if not any(TRACE_NAMES[k] in n for n in names)]
+    print(f"[fused] {label}: kernels in the profiled replay's trace: "
+          + ", ".join(k for k in kernels if k not in missing)
+          + (f"; MISSING {missing}" if missing else ""))
+    if missing:
+        raise AssertionError(f"{label}: {missing} not in the trace")
+
+
+def fused_phase(torch, MFLExperiment, counters):
+    """Paper CREMA-D on ``fused:pallas``: 8 rounds stepwise (graph
+    replays) and 8 through ``run_scanned``, both against the body run
+    eagerly on the card on the same inputs; then a profiled round whose
+    trace must show the path's kernels.  Returns the launches (captured
+    times replays)."""
+    from repro_torch.fl.fused_round import draw_round_xs, tree_row
+    reset, read = counters
+    reset()
+    step = MFLExperiment("crema_d", **FUSED_KW)
+    t_step = _timed_rounds(torch, step, FUSED_ROUNDS)
+    py = read()
+    eng = step._fused_engine
+    counts = graph_counts(eng)
+    # a scan of the first two rounds captures both graphs; the rest is
+    # timed
+    scan = MFLExperiment("crema_d", **FUSED_KW)
+    scan.run_scanned(2)
+    t0 = time.perf_counter()
+    scan.run_scanned(FUSED_ROUNDS - 2)
+    torch.cuda.synchronize()
+    t_scan = (time.perf_counter() - t0) * 1e3
+    # the body eagerly on the card, on the same inputs
+    eag = MFLExperiment("crema_d", **FUSED_KW)
+    e_eng = eag._get_fused_engine()
+    xs = draw_round_xs(eag, FUSED_ROUNDS)
+    c, parts = eag._carry, []
+    t0 = time.perf_counter()
+    for i in range(FUSED_ROUNDS):
+        c, aux = e_eng.step_eager(c, tree_row(xs, i))
+        parts.append(sorted(int(k) for k in torch.nonzero(aux.ok)))
+    torch.cuda.synchronize()
+    t_eager = (time.perf_counter() - t0) * 1e3 / FUSED_ROUNDS
+    for label, exp in (("stepwise", step), ("run_scanned", scan)):
+        got = [r.participants for r in exp.history]
+        err = _params_err(exp.global_params, c.params)
+        print(f"[fused] crema_d {label} ({FUSED_ROUNDS} rounds, graph "
+              f"replays) vs the eager body on the card: participants "
+              f"{'equal' if got == parts else f'{got} != {parts}'}, "
+              f"params max|err| {err:.3e} (tol 1e-4)")
+        if got != parts or err > 1e-4:
+            raise AssertionError(f"fused {label} disagrees with the eager "
+                                 f"body")
+    caps = {("eval" if g else "no eval"): round(v, 3)
+            for g, v in eng.capture_seconds.items()}
+    print(f"[fused] crema_d K=10 n=1200 fused:pallas rounds (stepwise; "
+          f"rounds 0 and 1 capture the eval and no-eval graphs) "
+          + ", ".join(f"{t:.3f}" for t in t_step) + f" ms; after capture "
+          f"mean {np.mean(t_step[2:]):.3f} ms; run_scanned("
+          f"{FUSED_ROUNDS - 2}) after a run_scanned(2) that captures "
+          f"{t_scan:.3f} ms ({t_scan / (FUSED_ROUNDS - 2):.3f} ms a round); "
+          f"eager "
+          f"body {t_eager:.3f} ms a round; capture s {caps}; captures "
+          f"{eng.capture_count}, replays "
+          f"{ {('eval' if g else 'no eval'): n for g, n in eng.replays.items()} }")
+    print(f"[fused] crema_d launches: captured a graph "
+          f"{ {('eval' if g else 'no eval'): v for g, v in eng.graph_launches.items()} }"
+          f"; captured x replays {counts}; the wrappers' own counts "
+          f"(warm-up and capture) {({k: v for k, v in py.items() if v})}")
+    if eng.capture_count != 2:
+        raise AssertionError(f"{eng.capture_count} captures, expected 2")
+    # one more step, its device span from CUDA events around it (the xs
+    # copies and the replay; no profiler), beside its host wall time
+    x = tree_row(draw_round_xs(step, 1), 0)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    step._carry, _ = eng.step(step._carry, x)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    span = start.elapsed_time(end)
+    print(f"[fused] crema_d one step (eval {bool(x.eval_flag)}): device "
+          f"span {span:.3f} ms (CUDA events), host wall {wall:.3f} ms; the "
+          f"device idles at least {1 - span / wall:.2%} of the step")
+    for name in ARCH_KERNELS["lstm-cnn"]:
+        if not counts.get(name):
+            raise AssertionError(f"{name} was not launched by the fused "
+                                 f"round")
+    names = profile_round(torch, step, "fused:pallas lstm-cnn/crema_d")
+    check_trace(names, ARCH_KERNELS["lstm-cnn"], "lstm-cnn/crema_d")
+    return counts
+
+
+def fused_backbone_phase(torch, MFLExperiment, arch):
+    """Two fused rounds with a backbone at full width (K=10, n=1200): the
+    mixer kernel runs inside the graphs; a profiled round's trace shows
+    it.  Returns the launches (captured times replays)."""
+    exp = MFLExperiment("crema_d", arch=arch, **FUSED_KW)
+    times = _timed_rounds(torch, exp, 2)
+    eng = exp._fused_engine
+    counts = graph_counts(eng)
+    rec = exp.history[-1]
+    print(f"[fused] {arch}/crema_d rounds (capture included) "
+          + ", ".join(f"{t:.3f}" for t in times) + f" ms; capture s "
+          f"{ {('eval' if g else 'no eval'): round(v, 3) for g, v in eng.capture_seconds.items()} }"
+          f"; launches captured x replays {counts}; participants "
+          f"{[r.participants for r in exp.history]}")
+    for name in ARCH_KERNELS[arch]:
+        if not counts.get(name):
+            raise AssertionError(f"{name} was not launched by the fused "
+                                 f"{arch} round")
+    names = profile_round(torch, exp, f"fused:pallas {arch}/crema_d")
+    check_trace(names, ARCH_KERNELS[arch], f"{arch}/crema_d")
+    if not all(math.isfinite(v) for v in rec.metrics.values()):
+        raise AssertionError(f"{arch}: non-finite fused metrics")
+    return counts
+
+
+def fused_twin_phase(torch, MFLExperiment, rounds=2):
+    """The fused body run eagerly on the card against the CPU's fused run
+    on the same CPU-drawn bits (CREMA-D, K=4, n=160): participants equal,
+    params within 1e-4."""
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core.trees import tree_leaves
+    from repro_torch.fl.fused_round import draw_round_xs, tree_row
+    kw = dict(K=4, n_samples=160, engine="fused:pallas",
+              scheduler_kwargs={"draw_source": cpu_draws})
+    gpu = MFLExperiment("crema_d", **kw)
+    eng = gpu._get_fused_engine()
+    xs = draw_round_xs(gpu, rounds)
+    c, parts = gpu._carry, []
+    for i in range(rounds):
+        c, aux = eng.step_eager(c, tree_row(xs, i))
+        parts.append(sorted(int(k) for k in torch.nonzero(aux.ok)))
+    cpu = MFLExperiment("crema_d", device="cpu", **kw)
+    cpu.run(rounds)
+    want = [r.participants for r in cpu.history]
+    err = max(float(np.abs(x - y).max()) for x, y in zip(
+        tree_leaves(params_to_numpy(c.params)),
+        tree_leaves(params_to_numpy(cpu.global_params))))
+    print(f"[fused] crema_d eager body on the card vs the cpu ({rounds} "
+          f"rounds, same cpu-drawn bits): participants {parts} "
+          f"{'equal' if parts == want else f'!= {want}'}, params max|err| "
+          f"{err:.3e} (tol 1e-4)")
+    if parts != want or err > 1e-4:
+        raise AssertionError("fused card and cpu twin runs disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1237,9 +1501,7 @@ def main() -> int:
         for m in (ops, fa_ops, ssd_ops, js_ops):
             m.reset_launch_counts()
 
-    def read_counts():
-        return {**ops.launch_counts(), **fa_ops.launch_counts(),
-                **ssd_ops.launch_counts(), **js_ops.launch_counts()}
+    from repro_torch.kernels import launch_counts as read_counts
 
     # phase 1: build
     build_phase()
@@ -1295,6 +1557,17 @@ def main() -> int:
     for arch in ("lstm-cnn", "transformer", "ssd"):
         profile_round(torch, exps[arch, "crema_d"], f"{arch}/crema_d")
 
+    # phase 3a: the seq and fused loops, each with the counters set to 0
+    # just before it
+    counters = (reset_counts, read_counts)
+    by_path = {"seq": seq_phase(torch, MFLExperiment, counters)}
+    by_path["fused"] = fused_phase(torch, MFLExperiment, counters)
+    for arch in ("transformer", "ssd"):
+        for k, v in fused_backbone_phase(torch, MFLExperiment,
+                                         arch).items():
+            by_path["fused"][k] = by_path["fused"].get(k, 0) + v
+    fused_twin_phase(torch, MFLExperiment)
+
     # phase 3b: the solver kernels at the main path's captured round
     solver_rows_, hp, solver_err = solver_phase(torch, capture.seen)
     max_err.update(solver_err)
@@ -1315,6 +1588,11 @@ def main() -> int:
         return {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            # the batched main path's launches are ``launches``; the seq
+            # loop's, and the fused loop's (captured times replays)
+            "launches_by_path": {"batched": launches[name],
+                                 **{p: c.get(name, 0)
+                                    for p, c in by_path.items()}},
             "max_abs_err": max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

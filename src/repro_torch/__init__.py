@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of the wireless multimodal FL system (``repro``).
 
 The JAX package ``repro`` stays the reference; this package imports nothing
-of it (nor ``jax``).  It runs the paper's Algorithm 1 as
-``fl.runtime.MFLExperiment(engine="batched:pallas")`` runs it: JCSBA on the
+of it (nor ``jax``).  It runs the paper's Algorithm 1 in the JAX
+package's three loops — ``fl.runtime.MFLExperiment(engine=...)`` with
+``"seq"`` (a local update a client), ``"batched:pallas"`` (the default) or
+``"fused"`` (the whole round on the device, a CUDA graph on a card) —
+with checkpoints in the JAX package's layout: JCSBA on the
 population-batched solver (or a baseline scheduler), the whole-cohort BGD
 step on the paper's LSTM/CNN submodels or on transformer / SSD encoders,
 Eq. 12 aggregation, the Lyapunov queues and the ζ/δ trackers.  Its kernels

@@ -16,17 +16,19 @@ schedulable.  ``objective(a)`` is the V-weighted term of the JCSBA objective
 J₁ (P3, Eq. 32).
 
 The tracker state and the bound are host numpy, as in the JAX package;
-``update_stacked`` reduces the [K, ...] gradient stacks on their device and
-brings only the [K] norms to the host.
+``update`` (the sequential loop) and ``update_stacked`` (the batched loop)
+reduce the gradients on their device and bring only the norms to the
+host.  The fused round keeps ζ/δ as tensors in its carry and refreshes them
+with the ``tracker_update_*`` functions below, which read nothing back.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .trees import tree_leaves, tree_norm
+from .trees import tree_leaves, tree_map, tree_norm, tree_sq_norm
 
 
 class BoundState:
@@ -54,6 +56,29 @@ class BoundState:
         self.staleness = staleness
 
     # ------------------------------------------------------------------
+    def update(self, grads_by_client: List[Optional[Mapping[str, dict]]],
+               agg_grads: Mapping[str, dict]) -> None:
+        """Refresh ζ/δ from the gradients uploaded this round
+        (``grads_by_client[k]``: client k's {modality: grads}, or None)."""
+        for m in self.mods:
+            if m not in agg_grads:
+                continue
+            self.zeta[m] = float(tree_norm(agg_grads[m]))
+            seen = []
+            for k, g in enumerate(grads_by_client):
+                if g is None or m not in g:
+                    continue
+                self.delta[m][k] = float(tree_norm(tree_map(
+                    torch.sub, g[m], agg_grads[m])))
+                seen.append(k)
+            if seen:
+                mean_d = float(np.mean([self.delta[m][k] for k in seen]))
+                for k in range(self.K):
+                    if k not in seen and m in self.client_mods[k]:
+                        # decay stale entries toward the fresh mean
+                        self.delta[m][k] = (self.staleness * self.delta[m][k]
+                                            + (1 - self.staleness) * mean_d)
+
     def update_stacked(self, stacked_grads: Mapping[str, dict],
                        upload_mask: Mapping[str, np.ndarray],
                        agg_grads: Mapping[str, dict]) -> None:
@@ -128,6 +153,12 @@ class BoundState:
         A1, A2 = self.a1_a2(a)
         return self.eta * self.rho * float(np.sqrt(A1 + A2))
 
+    def descent_bound(self, grad_sq_sum: float, gamma: float,
+                      a: np.ndarray) -> float:
+        """Full Theorem-2 RHS: −(2η−γη²)/2 Σ‖∇H_m‖² + ηρ√(A₁+A₂)."""
+        return (-(2 * self.eta - gamma * self.eta ** 2) / 2.0 * grad_sq_sum
+                + self.bound_term(a))
+
     def objective(self, a: np.ndarray, gamma: float = 1.0) -> float:
         """Scheduling objective = Theorem-2 RHS restricted to a-dependent
         terms, including the descent credit −(2η−γη²)/2·ζ_m² of each covered
@@ -143,6 +174,102 @@ class BoundState:
         c = (2 * self.eta - gamma * self.eta ** 2) / 2.0
         return (self.eta * self.rho * float(np.sqrt(A1 + A2))
                 - c * covered)
+
+
+# ---------------------------------------------------------------------------
+# The fused round's ζ/δ refresh: one modality's update as tensor ops with no
+# read-back.  Rows with real uploads take their measured divergence, stale
+# owners decay toward the fresh mean, and with no upload at all the state is
+# unchanged.  Two producers of the partials (ζ_new and the per-row
+# divergence norms): ``tracker_partials_diff`` by difference against the
+# aggregated gradient, and ``tracker_partials_gram`` from the per-modality
+# Gram matrix G = Σ_leaves X Xᵀ and the Eq. 12 weights (ζ² = wᵀGw, δ_j² =
+# G_jj − 2(Gw)_j + wᵀGw), which the fused round uses.
+# ---------------------------------------------------------------------------
+def tracker_partials_diff(stacked_g, agg_g):
+    """(ζ_new, per-row ‖g_j − ḡ‖ [J]) by direct difference against the
+    aggregate."""
+    leaves = tree_leaves(stacked_g)
+    lead = leaves[0].shape[0]
+    zeta_new = torch.sqrt(tree_sq_norm(agg_g))
+    sq = sum(((gs - ga[None]) ** 2).reshape(lead, -1).sum(dim=1)
+             for gs, ga in zip(leaves, tree_leaves(agg_g)))
+    return zeta_new, torch.sqrt(sq)
+
+
+def grad_gram(stacked_g):
+    """[J, J] Gram matrix G_ij = ⟨g_i, g_j⟩ of a stacked gradient dict,
+    summed over leaves (zero rows stay zero rows)."""
+    leaves = tree_leaves(stacked_g)
+    lead = leaves[0].shape[0]
+    return sum(x.reshape(lead, -1) @ x.reshape(lead, -1).T for x in leaves)
+
+
+def tracker_partials_gram(gram, w):
+    """(ζ_new, per-row ‖g_j − ḡ‖) from the Gram matrix and the aggregation
+    weights: ζ² = wᵀGw, δ_j² = G_jj − 2(Gw)_j + wᵀGw, clamped at 0 against
+    float32 cancellation."""
+    w = w.to(gram.dtype)
+    gw = gram @ w
+    wgw = w @ gw
+    zeta_new = torch.sqrt(torch.clamp_min(wgw, 0.0))
+    sq = torch.clamp_min(torch.diagonal(gram) - 2.0 * gw + wgw, 0.0)
+    return zeta_new, torch.sqrt(sq)
+
+
+def _tracker_refresh(zeta_m, delta_m, zeta_new, norms_c, mask_c, idx, has_m,
+                     staleness: float):
+    """Scatter cohort-local divergence norms into the dense [K] δ row
+    (``idx`` [J] distinct; the dense path passes ``arange(K)``), decay stale
+    owners toward the fresh mean, keep everything when nothing uploaded."""
+    mask_c = mask_c.to(torch.bool)
+    has_m = has_m.to(torch.bool)
+    any_m = mask_c.any()
+    mean_d = (norms_c * mask_c).sum() / torch.clamp_min(mask_c.sum(), 1)
+    decayed = staleness * delta_m + (1.0 - staleness) * mean_d
+    K = delta_m.shape[0]
+    idx = idx.to(torch.long)
+    uploaded = torch.zeros(K, dtype=torch.bool, device=delta_m.device
+                           ).index_copy(0, idx, mask_c)
+    norms_k = torch.zeros(K, dtype=delta_m.dtype, device=delta_m.device
+                          ).index_copy(0, idx, torch.where(
+                              mask_c, norms_c, 0.0).to(delta_m.dtype))
+    delta_new = torch.where(uploaded, norms_k,
+                            torch.where(has_m & ~uploaded, decayed, delta_m))
+    return (torch.where(any_m, zeta_new, zeta_m),
+            torch.where(any_m, delta_new, delta_m))
+
+
+def tracker_update_masked(zeta_m, delta_m, stacked_g, agg_g, mask, has_m,
+                          staleness: float):
+    """Refresh (ζ_m, δ_{·,m}) from a dense [K]-stacked gradient dict:
+    ``agg_g`` is the Eq. 9 aggregate, ``mask``/``has_m`` bool [K]
+    (uploaded this round / owns the modality)."""
+    zeta_new, norms = tracker_partials_diff(stacked_g, agg_g)
+    K = delta_m.shape[0]
+    return _tracker_refresh(zeta_m, delta_m, zeta_new, norms, mask,
+                            torch.arange(K, device=delta_m.device), has_m,
+                            staleness)
+
+
+def tracker_update_cohort(zeta_m, delta_m, cohort_g, agg_g, mask_c, idx,
+                          has_m, staleness: float):
+    """``tracker_update_masked`` on a gathered cohort: [J]-leading
+    gradients, norms scattered to the dense row through ``idx`` [J];
+    ``mask_c`` bool [J] marks real uploads, ``has_m`` bool [K]."""
+    zeta_new, norms_c = tracker_partials_diff(cohort_g, agg_g)
+    return _tracker_refresh(zeta_m, delta_m, zeta_new, norms_c, mask_c, idx,
+                            has_m, staleness)
+
+
+def tracker_update_gram(zeta_m, delta_m, gram, w_c, mask_c, idx, has_m,
+                        staleness: float):
+    """The Gram-form cohort refresh the fused round runs: the [J, J] Gram
+    matrix (``grad_gram``) and the cohort's Eq. 12 weights ``w_c`` [J] in
+    place of gradient stacks."""
+    zeta_new, norms_c = tracker_partials_gram(gram, w_c)
+    return _tracker_refresh(zeta_m, delta_m, zeta_new, norms_c, mask_c, idx,
+                            has_m, staleness)
 
 
 # ---------------------------------------------------------------------------

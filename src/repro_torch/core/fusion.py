@@ -26,8 +26,12 @@ def _float(x: torch.Tensor) -> torch.Tensor:
 
 
 def _avail(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(1.0 if a is None else a, dtype=like.dtype,
-                           device=like.device)
+    # a device tensor stays where it is and "all available" is a fill on
+    # ``like``'s device: no host-to-device copy, so a CUDA graph can
+    # capture the loss and the eval
+    if a is None:
+        return torch.ones((), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

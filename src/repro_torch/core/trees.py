@@ -1,10 +1,10 @@
-"""Reductions over ``{name: tensor}`` parameter dicts — squared norms and
-distances.
+"""Leaf walks and reductions over parameter and state trees — nested
+dicts and NamedTuples of tensors.
 
-The counterpart of the JAX package's pytree reductions for the port's plain
-nested dicts.  Leaves are visited in sorted-key order at every level, the
-order ``jax.tree.leaves`` uses for dicts, so both packages sum the same
-terms in the same order.
+The counterpart of the JAX package's pytree utilities for the port's plain
+trees.  Leaves are visited in sorted-key order at every dict level and in
+field order in a NamedTuple, the order ``jax.tree.leaves`` uses, so both
+packages sum the same terms in the same order.
 """
 from __future__ import annotations
 
@@ -13,19 +13,27 @@ from typing import Callable, List
 import torch
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves of a nested dict in sorted-key order."""
+    """Leaves of a tree of dicts and NamedTuples, dict keys sorted."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if _is_namedtuple(tree):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """Apply ``fn`` leafwise over dicts of identical structure, visiting
+    """Apply ``fn`` leafwise over trees of identical structure, visiting
     leaves in ``tree_leaves`` order."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     return fn(tree, *rest)
 
 

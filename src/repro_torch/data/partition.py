@@ -24,8 +24,9 @@ disjoint-block assignment bit-for-bit (same rng stream); seeds only differ
 in the previously-broken ω > 1/M regime.
 
 A numpy copy of the JAX package's module, so both packages partition the
-same cohort bit for bit.  The fused engine's device-resident ``ClientStore``
-and the vectorized ``synthetic_population`` are not ported yet.
+same cohort bit for bit, plus the fused round's population store
+(``ClientStore``): built as numpy, moved to the device once
+(``ClientStore.to``), and gathered a cohort at a time (``take``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import dataclasses
 from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .synthetic import MultimodalDataset
 
@@ -105,6 +107,76 @@ def stack_clients(clients: Sequence[ClientData],
     sizes = np.array([c.size for c in clients], np.int64)
     return StackedClients(feats, labels, smask, has, sizes,
                           tuple(all_modalities))
+
+
+# ---------------------------------------------------------------------------
+# ClientStore — the population store the fused round gathers its cohort from
+# ---------------------------------------------------------------------------
+_STORE_FIELDS = ("features", "labels", "sample_mask", "has_modality",
+                 "sizes", "gamma_bits", "tau_cmp", "e_cmp")
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientStore:
+    """Per-client population data, one leading client axis on every leaf.
+
+    * ``features[m]`` [K, N, ...] f32 (zero blocks for non-owners/padding)
+    * ``labels`` [K, N] i32 / ``sample_mask`` [K, N] f32
+    * ``has_modality[m]`` [K] bool
+    * ``sizes`` [K] f32 — D_k, the Eq. 12 weight numerators
+    * ``gamma_bits`` / ``tau_cmp`` / ``e_cmp`` [K] f32 — the wireless cost
+      vectors (Eqs. 15-18), gathered per cohort alongside the data
+
+    Leaves are numpy as built; ``to(device)`` gives the tensor store the
+    fused round reads, and ``take(idx)`` gathers cohort rows from it.
+    """
+    features: Dict[str, object]
+    labels: object
+    sample_mask: object
+    has_modality: Dict[str, object]
+    sizes: object
+    gamma_bits: object
+    tau_cmp: object
+    e_cmp: object
+    modalities: Tuple[str, ...]
+
+    @property
+    def K(self) -> int:
+        return int(self.labels.shape[0])
+
+    def _map(self, fn) -> "ClientStore":
+        vals = {f: getattr(self, f) for f in _STORE_FIELDS}
+        return ClientStore(**{f: ({m: fn(x) for m, x in v.items()}
+                                  if isinstance(v, dict) else fn(v))
+                              for f, v in vals.items()},
+                           modalities=self.modalities)
+
+    def to(self, device) -> "ClientStore":
+        """The same store as tensors on ``device`` (one copy a leaf)."""
+        return self._map(lambda x: torch.as_tensor(np.asarray(x),
+                                                   device=device))
+
+    def take(self, idx) -> "ClientStore":
+        """Cohort gather: ``index_select`` over the client axis of every
+        leaf of a tensor store (``idx`` [J] on the store's device)."""
+        idx = idx.to(torch.long)
+        return self._map(lambda x: x.index_select(0, idx))
+
+
+def build_client_store(stacked: StackedClients, gamma_bits, tau_cmp,
+                       e_cmp) -> ClientStore:
+    """A numpy ClientStore from a staged StackedClients plus the cohort's
+    wireless cost vectors (``wireless.cost.ClientCost`` arrays)."""
+    return ClientStore(
+        {m: np.asarray(v, np.float32) for m, v in stacked.features.items()},
+        np.asarray(stacked.labels, np.int32),
+        np.asarray(stacked.sample_mask, np.float32),
+        {m: np.asarray(v, bool) for m, v in stacked.has_modality.items()},
+        np.asarray(stacked.sizes, np.float32),
+        np.asarray(gamma_bits, np.float32),
+        np.asarray(tau_cmp, np.float32),
+        np.asarray(e_cmp, np.float32),
+        tuple(stacked.modalities))
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +253,39 @@ def missing_masks(K: int, omegas: Sequence[float], rng) -> np.ndarray:
         c += int(n)
     assert not miss.all(axis=0).any(), "internal: client lost every modality"
     return miss
+
+
+def synthetic_population(K: int, n_per_client: int,
+                         feature_shapes: Mapping[str, Sequence[int]],
+                         n_classes: int, omega,
+                         seed: int = 0, snr=1.0) -> ClientStore:
+    """A numpy ClientStore for O(10⁴–10⁶) clients without per-client Python
+    loops: the ``missing_masks`` modality heterogeneity, class-conditional
+    features (per-class prototype × snr_m plus unit noise, as
+    data/synthetic.py) and zero cost vectors for the caller to fill
+    (``dataclasses.replace``).  ``omega`` and ``snr`` broadcast as in
+    ``partition``."""
+    rng = np.random.default_rng(seed)
+    mods = tuple(sorted(feature_shapes))
+    omegas = normalize_omegas(omega, mods)
+    snrs = normalize_omegas(snr, mods)      # same broadcast rules, no bound
+    miss = missing_masks(K, omegas, rng)
+    has = {m: ~miss[i] for i, m in enumerate(mods)}
+    for m in mods:
+        assert has[m].any(), f"no client owns modality {m!r}"
+    labels = rng.integers(0, n_classes, (K, n_per_client)).astype(np.int32)
+    feats: Dict[str, np.ndarray] = {}
+    for i, m in enumerate(mods):
+        shape = tuple(feature_shapes[m])
+        protos = rng.standard_normal((n_classes,) + shape).astype(np.float32)
+        noise = rng.standard_normal(
+            (K, n_per_client) + shape).astype(np.float32)
+        own = has[m].reshape((K,) + (1,) * (len(shape) + 1))
+        feats[m] = (protos[labels] * np.float32(snrs[i]) + noise) * own
+    zeros = np.zeros(K, np.float32)
+    return ClientStore(feats, labels, np.ones((K, n_per_client), np.float32),
+                       has, np.full(K, float(n_per_client), np.float32),
+                       zeros, zeros.copy(), zeros.copy(), mods)
 
 
 def _dirichlet_shards(ds: MultimodalDataset, K: int, alpha: float,

@@ -125,7 +125,10 @@ class ModelAdapter:
             logits = self.modal_logits(stacked, feats, dropout_seeds=seeds)
             return self.cohort_loss(logits, labels, avail, smask, v_weights)
 
-        totals = (checkpoint(forward, use_reentrant=False) if self.remat
+        # the forward draws no torch random bits (dropout is a counter
+        # hash), so no RNG state is stashed: a CUDA graph can capture it
+        totals = (checkpoint(forward, use_reentrant=False,
+                             preserve_rng_state=False) if self.remat
                   else forward())
         # sum, not mean: each client's gradient lands in its own slice
         leaves = tree_leaves(stacked)
@@ -135,6 +138,38 @@ class ModelAdapter:
         dist_sq = {m: tree_sq_dist(new[m], init_params[m], lead=1)
                    for m in mods}
         return new, grads, totals.detach(), dist_sq
+
+    def local_update(self, global_params: Mapping[str, dict], client,
+                     seed: int, dropout_modality: Optional[str] = None):
+        """One BGD epoch on one client's unpadded shard (the ``seq``
+        loop): ``cohort_step`` on a cohort of one, every sample real and
+        every trained modality available, so with ``pallas`` the loss is
+        the fusion kernel at K=1 and T = the shard size.  ``seed`` is the
+        client's dropout seed; the per-sample dropout keys make the masks
+        those of the same client in the batched loop's padded stack.
+
+        Returns (updated params, grads, total loss) of the modalities the
+        client trains (its own, less ``dropout_modality`` unless that is
+        its only one)."""
+        mods = tuple(m for m in client.modalities if m != dropout_modality)
+        if not mods:
+            mods = tuple(client.modalities)
+        mods = tuple(sorted(mods))
+        dev = tree_leaves(global_params)[0].device
+        ds = client.dataset
+        feats = {m: torch.as_tensor(np.asarray(ds.features[m]),
+                                    device=dev)[None] for m in mods}
+        labels = torch.as_tensor(np.asarray(ds.labels), device=dev)[None]
+        ones = torch.ones(1, dtype=torch.float32, device=dev)
+        new, grads, totals, _ = self.cohort_step(
+            {m: global_params[m] for m in mods},
+            {m: global_params[m] for m in mods}, feats, labels,
+            torch.ones(labels.shape, dtype=torch.float32, device=dev),
+            {m: ones for m in mods},
+            torch.tensor([int(seed)], dtype=torch.int64, device=dev))
+        first = lambda x: x[0]                                # noqa: E731
+        return (tree_map(first, new), tree_map(first, grads),
+                float(totals[0]))
 
     def batched_local_update(self, global_params: Mapping[str, dict],
                              init_params: Mapping[str, dict],

@@ -3,16 +3,20 @@
 Every headline number of the paper (Table 3, Figs. 4-6) is a held-out-split
 metric: multimodal accuracy (Eq. 1 fused logits), per-modality unimodal
 accuracy, and the fused cross-entropy.  ``eval_metrics`` computes them from
-the same forward pass the training step uses.
+the same forward pass the training step uses, as tensors on the params'
+device: the host API (``ModelAdapter.evaluate``) reads them back; the fused
+round (fl/fused_round.py) keeps them on the device on the rounds its eval
+cadence flags, and ``nan_metrics`` fills the others.
 """
 from __future__ import annotations
 
 from typing import Dict, Mapping, Tuple
 
+import numpy as np
 import torch
 
 from ..core import fusion
-from ..core.trees import tree_map
+from ..core.trees import tree_leaves, tree_map
 from ..models import paper_models as pm
 
 #: metric keys shared by every evaluation surface, before the per-modality
@@ -53,3 +57,30 @@ def eval_metrics(params: Mapping[str, dict],
     for m in feats:
         out[m] = fusion.accuracy(logits[m], labels)
     return out
+
+
+def nan_metrics(mods, device=None) -> Dict[str, torch.Tensor]:
+    """``eval_metrics``' keys with every value a float32 NaN — what a round
+    off the eval cadence emits (consumers gate on the round's eval flag,
+    never on the fillers)."""
+    return {k: torch.full((), float("nan"), dtype=torch.float32,
+                          device=device) for k in metric_keys(mods)}
+
+
+def device_test_set(test_ds, device) -> Tuple[Dict[str, torch.Tensor],
+                                              torch.Tensor]:
+    """A dataset's features and labels on ``device``, moved once (the fused
+    engine holds them for the experiment's lifetime)."""
+    feats = {m: torch.as_tensor(np.asarray(x), device=device)
+             for m, x in sorted(test_ds.features.items())}
+    return feats, torch.as_tensor(np.asarray(test_ds.labels), device=device)
+
+
+def eval_metrics_stacked(stacked_params, feats, labels, *, logits_fn=None
+                         ) -> Dict[str, torch.Tensor]:
+    """``eval_metrics`` over a leading axis of ``stacked_params`` (one row
+    per scenario): a dict of [S] tensors."""
+    S = tree_leaves(stacked_params)[0].shape[0]
+    rows = [eval_metrics(tree_map(lambda x: x[s], stacked_params), feats,
+                         labels, logits_fn=logits_fn) for s in range(S)]
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

@@ -15,33 +15,45 @@ Per communication round t:
   5. Lyapunov queues and the Theorem-1 ζ/δ trackers are updated;
   6. test metrics (multimodal + per-modality accuracy) are recorded.
 
-Step 3 runs all K clients' updates as one cohort step over a dense,
-device-resident client stack (``data.partition.StackedClients``): every
-modality is materialised for every client at a fixed ``max_batch``, padding
-is masked out of the loss by a ``sample_mask``, and a per-modality 0/1
-upload mask [K] (scheduled ∧ no transmission failure ∧ owns the modality ∧
-did not drop it) zeroes the loss — hence the gradient — of everything that
-is not uploaded.  Unscheduled clients still run in the stack with avail = 0.
+In the batched loop, step 3 runs all K clients' updates as one cohort step
+over a dense, device-resident client stack
+(``data.partition.StackedClients``): every modality is materialised for
+every client at a fixed ``max_batch``, padding is masked out of the loss by
+a ``sample_mask``, and a per-modality 0/1 upload mask [K] (scheduled ∧ no
+transmission failure ∧ owns the modality ∧ did not drop it) zeroes the loss
+— hence the gradient — of everything that is not uploaded.  Unscheduled
+clients still run in the stack with avail = 0.
 
 The engine spec keeps the JAX package's grammar,
-``"<loop>[:<token>[+<token>...]]"``.  The port runs the ``batched`` loop
-with every JCSBA solver backend (``jax`` — the default —, ``np``, ``seq``)
-and every scheduler; the ``pallas`` token selects the CUDA fusion-loss
-kernel and, for the transformer/SSD backbones (``arch=``), the
+``"<loop>[:<token>[+<token>...]]"``, and its three loops:
+
+* ``seq`` — the reference: one local update per scheduled client on its
+  unpadded shard (``ModelAdapter.local_update``), Eq. 12 over per-client
+  dicts;
+* ``batched`` (the default, ``"batched:pallas"``) — the cohort step above;
+* ``fused`` — the whole round as one device program
+  (``fl/fused_round.py``), captured once as a CUDA graph and replayed every
+  round on a card; ``run_scanned(R)`` runs R rounds with one read-back.
+
+The JCSBA solver backend is a token (``jax`` — the default —, ``np``,
+``seq``; ``fused`` takes ``jax`` only); ``pallas`` selects the CUDA
+fusion-loss kernel and, for the transformer/SSD backbones (``arch=``), the
 flash-attention / SSD kernels in their mixers; ``remat`` checkpoints the
-cohort forward.  The default is ``"batched:pallas"``, the JAX package's
-main path with the fusion-loss kernel.  The run consumes the experiment's
-numpy ``Generator`` in the JAX package's order — channel draw, the
-scheduler's one seed draw (or the ``seq`` search's draws), K client seeds.
-The scheduler's random bits come from a draw source seeded by its draw
-(``wireless.schedulers``); with the JAX package's bits injected
-(``scheduler_kwargs={"draw_source": ...}``) participants match the JAX
-package round by round.
+cohort forward.  Every loop consumes the experiment's numpy ``Generator``
+in the JAX package's order — channel draw, the scheduler's one seed draw
+(or the ``seq`` search's draws), K client seeds.  The scheduler's random
+bits come from a draw source seeded by its draw (``wireless.schedulers``);
+with the JAX package's bits injected (``scheduler_kwargs={"draw_source":
+...}``) participants match the JAX package round by round.
+
+``save``/``restore`` write and read the JAX package's checkpoint layout
+(``checkpoint/``): a checkpoint of either package restores in the other.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -49,9 +61,10 @@ import torch
 
 from ..core import aggregation as agg
 from ..core.convergence import BoundState
-from ..core.trees import tree_map
+from ..core.trees import tree_map, tree_sq_dist
 from ..data import synthetic
-from ..data.partition import partition, stack_clients, train_test_split
+from ..data.partition import (build_client_store, partition, stack_clients,
+                              train_test_split)
 from ..device import resolve_device
 from ..wireless import cost as wcost
 from ..wireless.channel import Channel
@@ -90,10 +103,6 @@ ENGINE_LOOPS = ("seq", "batched", "fused")
 
 #: valid "+"-joined engine-spec tokens after the ":"
 ENGINE_TOKENS = ("jax", "np", "seq", "pallas", "remat")
-
-#: the loops the port does not run yet, and where they are queued
-_QUEUED = {"seq": "ROADMAP.md Queue 1 item 6 (the seq loop)",
-           "fused": "ROADMAP.md Queue 1 item 7 (fused_round.py)"}
 
 
 def parse_engine(engine: str):
@@ -137,10 +146,12 @@ class MFLExperiment:
         self.device = resolve_device(device)
         (loop, solver_backend, loss_backend, remat, use_kernels,
          self.engine) = parse_engine(engine)
-        if loop in _QUEUED:
-            raise NotImplementedError(
-                f"engine {engine!r}: {loop!r} is not ported yet; it is "
-                f"{_QUEUED[loop]}")
+        self.batched = loop == "batched"
+        self.fused = loop == "fused"
+        self._fused_engine = None           # built lazily (fl/fused_round.py)
+        self._carry = None                  # FusedCarry when fused
+        self._store_dev = None              # device-resident ClientStore
+        self._store_src = None              # cohort it was built from
         self.rng = np.random.default_rng(seed)
         self.params = params or WirelessParams(K=K)
         self.eval_every = eval_every
@@ -178,12 +189,21 @@ class MFLExperiment:
             kw.setdefault("solver", solver_backend)
         self.scheduler: Scheduler = make_scheduler(scheduler, self.rng, **kw)
         self.scheduler.bind(K, self.client_mods)
+        if self.fused and self.scheduler.policy is None:
+            raise ValueError(
+                f"engine='fused' requires a scheduling policy on tensors; "
+                f"scheduler={scheduler!r} with backend={solver_backend!r} "
+                f"runs host-side only (every scheduler has one — jcsba, "
+                f"random, round_robin, selection, dropout — except JCSBA's "
+                f"np/seq parity backends)")
         self.model_dist = np.zeros(K)
         self.history: List[RoundRecord] = []
         self._round = 0
 
     # ------------------------------------------------------------------
     def run_round(self) -> RoundRecord:
+        if self.fused:
+            return self._run_round_fused()
         t = self._round
         h = self.channel.draw()
         ctx = ScheduleContext(h=h, Q=self.queues.Q, cost=self.cost,
@@ -202,7 +222,11 @@ class MFLExperiment:
 
         # --- local updates + aggregation (Eq. 12) + trackers ---
         seeds = self._draw_client_seeds()
-        self.last_weights = self._round_batched(dec, participants, seeds)
+        if self.batched:
+            w_t = self._round_batched(dec, participants, seeds)
+        else:
+            w_t = self._round_sequential(dec, participants, seeds)
+        self.last_weights = w_t
         self.queues.step(dec.a.astype(float), ecom, self.cost.e_cmp,
                          self.params.E_add)
 
@@ -221,11 +245,105 @@ class MFLExperiment:
         self._round += 1
         return rec
 
+    # ------------------------------------------------------------------
+    # the fused loop (fl/fused_round.py): the whole round on the device
+    # ------------------------------------------------------------------
+    def _get_fused_engine(self):
+        if self._fused_engine is None:
+            from .fused_round import FusedRoundEngine
+            self._fused_engine = FusedRoundEngine(self)
+        if self._carry is None:
+            self._carry = self._fused_engine.init_carry()
+        return self._fused_engine
+
+    def _decode_fused_round(self, t: int, aux, sched_time: float
+                            ) -> RoundRecord:
+        """Host decode of one round's aux (numpy) into a RoundRecord; the
+        metrics are real only on rounds the cadence flagged."""
+        a = np.asarray(aux.a, bool)
+        ok = np.asarray(aux.ok, bool)
+        self.last_weights = {m: np.asarray(aux.weights[m], np.float64)
+                             for m in self.all_mods}
+        metrics = {}
+        if bool(aux.eval_mask):
+            metrics = {k: float(v) for k, v in aux.metrics.items()}
+        dropped = {m: np.flatnonzero(np.asarray(d, bool))
+                   for m, d in aux.drop.items()}
+        return RoundRecord.make(t, sorted(np.flatnonzero(ok)),
+                                sorted(np.flatnonzero(a & ~ok)),
+                                aux.energy_total, metrics, sched_time,
+                                {m: ks for m, ks in dropped.items()
+                                 if len(ks)})
+
+    def _run_round_fused(self) -> RoundRecord:
+        # the record's sched_time_s holds the whole fused round's wall time
+        # (the stages are one program; the first round on a card includes
+        # the graph's warm-up and capture)
+        from .fused_round import draw_round_xs, tree_row
+        eng = self._get_fused_engine()
+        xs = tree_row(draw_round_xs(self, 1), 0)
+        self._carry, aux, wall = eng.run(self._carry, xs, scanned=False)
+        rec = self._decode_fused_round(self._round, aux, wall)
+        self.history.append(rec)
+        self._round += 1
+        # the host mirrors (global_params, queues, bound, model_dist) stay
+        # live; the carry stays the source of truth
+        eng.export_carry(self._carry)
+        return rec
+
+    def run_scanned(self, rounds: int) -> List[RoundRecord]:
+        """R fused rounds with the randomness drawn up front in the host
+        loop's order and one read-back at the end — the same rounds as R
+        ``run_round()`` calls.  Metrics are evaluated inside on the
+        ``eval_every`` grid; ``sched_time_s`` records the mean wall time a
+        round of the whole scan."""
+        if not self.fused:
+            raise RuntimeError("run_scanned requires engine='fused'")
+        from .fused_round import draw_round_xs, tree_row
+        eng = self._get_fused_engine()
+        xs = draw_round_xs(self, rounds)
+        self._carry, auxs, wall = eng.run(self._carry, xs, scanned=True)
+        start, per = self._round, wall / max(rounds, 1)
+        recs = [self._decode_fused_round(start + i, tree_row(auxs, i), per)
+                for i in range(rounds)]
+        self.history.extend(recs)
+        self._round += rounds
+        eng.export_carry(self._carry)
+        return recs
+
+    # ------------------------------------------------------------------
+    # local-update fan-out: sequential (reference) and batched
+    # ------------------------------------------------------------------
     def _draw_client_seeds(self) -> np.ndarray:
         """One dropout seed per client, every round, scheduled or not — K
         scalar draws, the JAX package's static consumption pattern."""
         return np.array([self.rng.integers(2 ** 31)
                          for _ in range(self.params.K)], np.uint32)
+
+    def _round_sequential(self, dec, participants,
+                          seeds: np.ndarray) -> Dict[str, np.ndarray]:
+        """The reference path: one local update per scheduled client."""
+        K = self.params.K
+        client_params: List[Optional[dict]] = [None] * K
+        client_grads: List[Optional[dict]] = [None] * K
+        for k in participants:
+            drop = (dec.dropout_modality[k]
+                    if dec.dropout_modality is not None else None)
+            newp, grads, _ = self.adapter.local_update(
+                self.global_params, self.clients[k], int(seeds[k]), drop)
+            client_params[k] = newp
+            client_grads[k] = grads
+            self.model_dist[k] = float(np.sqrt(float(tree_sq_dist(
+                newp, {m: self.init_params[m] for m in newp}))))
+        # participated weights (Eq. 12), renormalised over what was
+        # uploaded (a dropped modality is absent from the upload)
+        w_t = agg.weights_from_uploads(self.data_sizes, client_params,
+                                       self.all_mods)
+        self.global_params = agg.aggregate(self.global_params, client_params,
+                                           w_t)
+        agg_grads = agg.aggregate_gradients(client_grads, w_t)
+        self.bound.update(client_grads, agg_grads)
+        return w_t
 
     def _round_batched(self, dec, participants,
                        seeds: np.ndarray) -> Dict[str, np.ndarray]:
@@ -277,6 +395,18 @@ class MFLExperiment:
             self._stacked_src = src
         return self._stacked_dev
 
+    def _get_store(self):
+        """Device-resident ``ClientStore`` (the fused round's population
+        store), rebuilt if the cohort is swapped out, as ``_get_stacked``."""
+        src = tuple(map(id, self.clients))
+        if self._store_dev is None or self._store_src != src:
+            sc = stack_clients(self.clients, self.all_mods)
+            self._store_dev = build_client_store(
+                sc, self.cost.gamma_bits, self.cost.tau_cmp,
+                self.cost.e_cmp).to(self.device)
+            self._store_src = src
+        return self._store_dev
+
     def run(self, rounds: int, verbose: bool = False) -> List[RoundRecord]:
         for _ in range(rounds):
             rec = self.run_round()
@@ -288,6 +418,65 @@ class MFLExperiment:
                       f"part={rec.participants}")
         return self.history
 
+    # ------------------------------------------------------------------
+    # checkpoint / resume (server state: global model, queues, trackers)
+    # ------------------------------------------------------------------
+    def save(self, path: str) -> str:
+        """The server state in the JAX package's checkpoint layout."""
+        from ..checkpoint import save_checkpoint
+        if self.fused and self._carry is not None:
+            # the carry is authoritative mid-fused-experiment
+            self._fused_engine.export_carry(self._carry)
+        state = {
+            "global_params": self.global_params,
+            "queues_Q": self.queues.Q,
+            "queues_spent": self.queues.spent,
+            "delta": {m: self.bound.delta[m] for m in self.all_mods},
+            "model_dist": self.model_dist,
+            # the policy's own state (JCSBA warm start, Round-Robin cursor)
+            "policy": self.scheduler.state(),
+        }
+        meta = {"round": self._round,
+                "zeta": {m: float(self.bound.zeta[m]) for m in self.all_mods},
+                "queues_t": self.queues.t}
+        return save_checkpoint(path, state, step=self._round, metadata=meta)
+
+    def restore(self, path: str) -> int:
+        """Restore a checkpoint of either package; returns its round."""
+        from ..checkpoint import load_checkpoint
+        from ..convert import params_from_numpy
+        state, manifest = load_checkpoint(path)
+        self.global_params = params_from_numpy(state["global_params"],
+                                               self.device)
+        self.queues.Q = np.asarray(state["queues_Q"])
+        self.queues.spent = np.asarray(state["queues_spent"])
+        self.queues.t = manifest["metadata"]["queues_t"]
+        for m in self.all_mods:
+            self.bound.delta[m] = np.asarray(state["delta"][m])
+            self.bound.zeta[m] = manifest["metadata"]["zeta"][m]
+        self.model_dist = np.asarray(state["model_dist"])
+        # stateless policies saved nothing (the empty dict flattens away);
+        # checkpoints from before the policy layer hold the JCSBA warm
+        # start as a top-level "warm_a" blob — restored, but deprecated
+        pol = state.get("policy")
+        if pol is None and "warm_a" in state:
+            warnings.warn(
+                "checkpoint uses the legacy top-level 'warm_a' warm-start "
+                "blob; restored this time — re-save the experiment to "
+                "migrate to the policy/ state-dict format (see README "
+                "'Checkpoint migration')",
+                DeprecationWarning, stacklevel=2)
+            pol = {"warm_a": state["warm_a"]}
+        if pol:
+            self.scheduler.load_state(pol)
+        self._round = manifest["step"]
+        if self.fused:
+            # rebuild the carry from the restored host state
+            self._carry = None
+            self._get_fused_engine()
+        return self._round
+
+    # ------------------------------------------------------------------
     def final_metrics(self) -> Dict[str, float]:
         for rec in reversed(self.history):
             if rec.metrics:

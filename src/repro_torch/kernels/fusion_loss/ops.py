@@ -475,8 +475,10 @@ def fused_multimodal_loss(modal_logits: Mapping[str, torch.Tensor],
     dev = labels.device
     avs = []
     for m in names:
-        a = torch.as_tensor(1.0 if avail is None else avail[m],
-                            dtype=torch.float32, device=dev)
+        # a device tensor goes in as it is (no host copy inside a captured
+        # round); host masks are moved here
+        a = (torch.ones(K, dtype=torch.float32, device=dev) if avail is None
+             else torch.as_tensor(avail[m], dtype=torch.float32, device=dev))
         if a.ndim > 1 or (a.ndim == 1 and a.shape[0] != K):
             raise NotImplementedError(
                 "fused_multimodal_loss takes a per-client scalar avail [K] "

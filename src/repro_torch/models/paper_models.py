@@ -24,6 +24,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.trees import tree_leaves
+
 _MASK32 = 0xFFFFFFFF
 
 
@@ -298,3 +300,8 @@ def modal_logits(params, inputs: dict, *,
         out[m] = MODAL_APPLY[m](params[m], inputs[m], dropout_keys=keys,
                                 dropout=dropout)
     return out
+
+
+def param_bits(params, bits_per_param: int = 32) -> int:
+    """Upload size in bits (cf. the paper's l_m table)."""
+    return sum(x.numel() for x in tree_leaves(params)) * bits_per_param

@@ -76,6 +76,9 @@ def backbone(params, x, cfg: ModelConfig, *, attn_chunk: int = 1024,
 
     for n in range(cfg.n_blocks):
         bp = tree_map(lambda t: t[:, n], params["blocks"])
-        x = (checkpoint(blk, x, bp, use_reentrant=False) if remat
+        # no torch random bits in a block (dropout is a counter hash), so
+        # no RNG state is stashed: a CUDA graph can capture the recompute
+        x = (checkpoint(blk, x, bp, use_reentrant=False,
+                        preserve_rng_state=False) if remat
              else blk(x, bp))
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -28,6 +28,7 @@ the scheduled clients (ascending, padded with unscheduled indices).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,6 +64,14 @@ def equal_bandwidth_traced(a, B_max):
 def _mask(K: int, idx, device):
     return torch.zeros(K, dtype=torch.bool, device=device).index_fill_(
         0, idx.to(torch.long), True)
+
+
+@functools.lru_cache(maxsize=64)
+def _static_tensor(values: tuple, dtype, device) -> torch.Tensor:
+    """A policy's static table (group ids, ownership) on ``device``, copied
+    there once: the first call runs eagerly, so a round captured as a CUDA
+    graph later reads the cached tensor and makes no host-to-device copy."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _nan(device):
@@ -222,8 +231,7 @@ class SelectionPolicy(SchedulePolicy):
 
     def step_full(self, state, data, model_dist, draws):
         dist = torch.as_tensor(model_dist).to(torch.float32)
-        gid = torch.tensor(self.group_ids, dtype=torch.int32,
-                           device=dist.device)
+        gid = _static_tensor(self.group_ids, torch.int32, dist.device)
         a = torch.zeros(self.K, dtype=torch.bool, device=dist.device)
         for g, n_pick in self.group_picks:
             scores = torch.where(gid == g, dist, -float("inf"))
@@ -274,9 +282,8 @@ class DropoutPolicy(SchedulePolicy):
 
     def drop_mask(self, a, u_drop, u_which):
         """[M, K] bool — modality ``drop_mods[i]`` dropped by client k."""
-        owns = torch.tensor(self.owns, dtype=torch.bool,
-                            device=a.device).reshape(len(self.drop_mods),
-                                                     self.K)
+        owns = _static_tensor(self.owns, torch.bool, a.device).reshape(
+            len(self.drop_mods), self.K)
         n_owned = owns.sum(0)                                # [K]
         do = a & (n_owned > 1) & (u_drop < self.p_drop)
         # uniform pick among the client's owned modalities, in row order:

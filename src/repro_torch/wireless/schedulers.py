@@ -150,6 +150,13 @@ class PolicyScheduler(Scheduler):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return policy.draws(gen, self.device)
 
+    def round_draws(self, seed: int) -> dict:
+        """The bits of the round seeded with ``seed``, as tensors on
+        ``device`` (the fused round draws them up front,
+        ``fl.fused_round.draw_round_xs``)."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in self._draws(self._policy, seed).items()}
+
     def _build_data(self, ctx: ScheduleContext) -> dict:
         return {"B_max": float(np.float32(ctx.params.B_max))}
 
@@ -159,8 +166,7 @@ class PolicyScheduler(Scheduler):
         self.bind(K, ctx.client_modalities)
         seed = int(self.rng.integers(2 ** 31))
         dev = self.device
-        draws = {k: torch.as_tensor(v, device=dev)
-                 for k, v in self._draws(self._policy, seed).items()}
+        draws = self.round_draws(seed)
         dist = torch.as_tensor(np.zeros(K) if ctx.model_dist is None
                                else ctx.model_dist, dtype=torch.float32,
                                device=dev)

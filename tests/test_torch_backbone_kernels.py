@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cpu import one_torch_thread  # noqa: F401
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.kernels.ssd_scan.kernel import ssd_chunk_pallas

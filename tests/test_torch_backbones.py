@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cpu import one_torch_thread  # noqa: F401
 from repro.core import fusion as jfusion
 from repro.fl.client import make_adapter as jmake_adapter
 from repro.fl.runtime import MFLExperiment as JExperiment

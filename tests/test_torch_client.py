@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cpu import one_torch_thread  # noqa: F401
 from repro.fl.client import PaperModelAdapter as JAdapter
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.trees import tree_leaves

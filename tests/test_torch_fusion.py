@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cpu import one_torch_thread  # noqa: F401
 from repro.core import fusion as jfusion
 from repro.kernels.fusion_loss import kernel as jkernel
 from repro.kernels.fusion_loss import ops as jops

@@ -3,6 +3,7 @@ never runs on the CPU unless asked, and launches its kernels only on CUDA
 tensors.  Tests that need a card carry the ``gpu`` marker and skip here
 (run them on a card with ``PYTHONPATH=src python -m pytest -m gpu
 tests/test_torch_isolation.py``)."""
+import math
 import os
 import subprocess
 import sys
@@ -11,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cpu import one_torch_thread  # noqa: F401
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.trees import tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.fl.runtime import MFLExperiment
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -50,7 +53,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 35
+    assert n_modules >= 39
 
 
 @pytest.fixture
@@ -589,3 +592,78 @@ def test_solve_on_card_matches_plain_solve(cuda):
     assert torch.equal(a, a_w)
     torch.testing.assert_close(J, J_w, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(B, B_w, rtol=1e-3, atol=2.0)
+
+
+def _fused_card(arch="lstm-cnn", **kw):
+    return MFLExperiment("crema_d", K=6, n_samples=240, arch=arch,
+                         engine="fused:pallas", eval_every=2,
+                         scheduler_kwargs={"immune_kwargs": {"S": 8,
+                                                             "G": 3}},
+                         **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["lstm-cnn", "transformer", "ssd"])
+def test_fused_graph_replays_equal_the_eager_body(cuda, arch):
+    """The captured round, replayed, against the same body run eagerly on
+    the card on the same carry and xs: participants identical, params
+    within 1e-6, metrics on the eval rounds within 1e-6."""
+    from repro_torch.fl.fused_round import draw_round_xs, tree_row
+    exp = _fused_card(arch)
+    eng = exp._get_fused_engine()
+    xs = draw_round_xs(exp, 4)
+    eager = graph = exp._carry
+    for i in range(4):
+        x = tree_row(xs, i)
+        eager, ae = eng.step_eager(eager, x)
+        graph, ag = eng.step(graph, x)
+        assert torch.equal(ae.ok, ag.ok) and torch.equal(ae.a, ag.a)
+        for k in ae.metrics:
+            torch.testing.assert_close(ae.metrics[k], ag.metrics[k],
+                                       rtol=1e-6, atol=1e-6,
+                                       equal_nan=True)
+    for a, b in zip(tree_leaves(eager.params), tree_leaves(graph.params)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert eng.capture_count == 2       # one graph with eval, one without
+
+
+@pytest.mark.gpu
+def test_fused_rounds_capture_once_a_graph(cuda):
+    """Many rounds, one capture a graph: stepwise rounds and a scan reuse
+    the two captured graphs; the captured rounds launched the fusion-loss
+    and solver kernels, and each replay counts."""
+    exp = _fused_card()
+    exp.run(3)
+    exp.run_scanned(4)
+    eng = exp._fused_engine
+    assert eng.capture_count == 2
+    assert eng.replays == {True: 4, False: 3}
+    for g in (True, False):
+        got = eng.graph_launches[g]
+        assert got["fusion_loss_fwd"] == got["fusion_loss_bwd"] == 1
+        assert got["jcsba_bmin_kernel"] == 1
+        assert got["jcsba_population_kernel"] == 1 + 2 * 3 + 1
+    assert len(exp.history) == 7
+    assert all(math.isfinite(v) for r in exp.history
+               for v in r.metrics.values())
+
+
+@pytest.mark.gpu
+def test_fused_global_params_survive_a_replay(cuda):
+    """``global_params`` is a copy of the carry, not the graph's static
+    buffers: a reference kept across replayed rounds still holds the
+    round it was taken at, as in the host loops, where the params are
+    rebound each round and never written in place."""
+    exp = _fused_card()
+    exp.run(2)                      # the two captures (eval, no eval)
+    kept = exp.global_params
+    snap = [x.clone() for x in tree_leaves(kept)]
+    exp.run(2)                      # two more replays, no capture
+    eng = exp._fused_engine
+    assert eng.capture_count == 2
+    assert eng.replays == {True: 2, False: 2}
+    for a, b in zip(tree_leaves(kept), snap):
+        assert torch.equal(a, b)
+    if any(r.participants for r in exp.history[2:]):
+        assert any(not torch.equal(a, b) for a, b in
+                   zip(tree_leaves(exp.global_params), snap))

@@ -10,6 +10,7 @@ card (tests/test_torch_isolation.py)."""
 import pytest
 import torch
 
+from _torch_cpu import one_torch_thread  # noqa: F401
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from _torch_cpu import one_torch_thread  # noqa: F401
 from _torch_jax_parity import jax_draw_source, setup as _setup
 from _torch_jax_parity import solver_data as _data
 from repro.core.convergence import objective_batched as j_objective_batched
