@@ -49,6 +49,19 @@ Phases, each of which fails the run when it fails:
    as each graph's captured launches times its replays; round times after
    capture, capture seconds, and one profiled round a model whose trace
    must show every kernel of its path;
+3c. ``[scenario]``: the scenario axis over the fused round, one captured
+   round replayed scenario by scenario — the JAX zoo benchmark's 12 rows
+   (iemocap at the paper's widths, K=10, 120 samples a client, 128 test
+   samples, 30 rounds, eval every 5, JCSBA) through one
+   ``scan_scenario_grid`` with per-scenario stores and test splits (2
+   captures for the whole zoo), 2 rows x 3 rounds of it against the body
+   run eagerly on the card and against the CPU on CPU-drawn bits, the
+   swap's time; the dense 12-point V grid (E_add = 2e-4, so the queues
+   grow and the population kernel takes its Q>0 branch; 40 rounds)
+   through ``scan_v_grid``, with the population kernel's device ms a
+   round from a profiled run; 2-row grids on the transformer and SSD
+   backbones (2 rounds); the population kernel reading V from the device,
+   one captured launch replayed at two V against the plain version;
 3b. ``[solver]``: the two JCSBA solver kernels against their plain versions
    on the round data the paper CREMA-D run gave the solver (K=10, captured)
    and at K = 100 and 1000, rows of 1-5 clients, P = 1, 20, 24; one whole
@@ -125,6 +138,35 @@ BASELINES = ("random", "round_robin", "selection", "dropout")
 SEQ_ROUNDS = 2
 FUSED_ROUNDS = 8
 FUSED_KW = dict(K=10, n_samples=1200, engine="fused:pallas", eval_every=2)
+#: the scenario axis: the JAX zoo benchmark's 12 rows
+#: (benchmarks/scenario_zoo.py:default_zoo, copied as data: the port
+#: imports nothing of benchmarks/) at the paper's scale, and its dense V
+#: grid (benchmarks/v_frontier.py:32)
+ZOO_ROWS = (
+    dict(name="iid", split="iid", omega=0.0),
+    dict(name="iid,om=0.3", split="iid", omega=0.3),
+    dict(name="iid,om=0.6", split="iid", omega=0.6),
+    dict(name="iid,om=0.6/0.2", split="iid", omega=(0.6, 0.2)),
+    dict(name="dir01,om=0.3", split="dirichlet", alpha=0.1, omega=0.3),
+    dict(name="dir05,om=0.3", split="dirichlet", alpha=0.5, omega=0.3),
+    dict(name="nat,om=0.3", split="natural", alpha=0.5, n_groups=4,
+         omega=0.3),
+    dict(name="nat-sig2,om=0.3", split="natural", alpha=0.5, n_groups=4,
+         group_sigma=2.0, omega=0.3),
+    dict(name="iid,om=0.3,noise1", split="iid", omega=0.3, noise_sigma=1.0),
+    dict(name="iid,om=0.3,erase03", split="iid", omega=0.3,
+         erasure_rate=0.3),
+    dict(name="iid,om=0.3,no-text", split="iid", omega=0.3,
+         test_missing="text"),
+    dict(name="iid,om=0.3,V=10", split="iid", omega=0.3, V=10.0),
+)
+ZOO_GEOM = dict(dataset="iemocap", K=10, n_per_client=120, n_test=128)
+ZOO_ROUNDS, ZOO_EVAL, V_ROUNDS = 30, 5, 40
+#: a population launch longer than this took the Q>0 branch (the κ/φ⁻¹
+#: bisections: ~180 µs on the card; the closed-form branches ~3 µs)
+Q_BRANCH_US = 50
+DENSE_V_GRID = (0.0001, 0.001, 0.01, 0.05, 0.1, 0.5, 1.0, 2.0, 5.0, 10.0,
+                50.0, 100.0)
 #: each wrapper's kernels by their names in a profiler trace
 TRACE_NAMES = {"fusion_loss_fwd": "fusion_fwd_",
                "fusion_loss_bwd": "fusion_bwd_",
@@ -370,7 +412,6 @@ def kernel_phase(torch, ops, ref, exps):
     bfloat16 values, so the float32 tolerances hold); the plan's shared
     memory against the C side's.  Returns the cases and the max abs error
     per kernel against the float32 plain."""
-    from repro_torch.kernels.fusion_loss.build import load
     cases = {name: path_case(torch, exp, seed=1 + i)
              for i, (name, exp) in enumerate(exps.items())}
     cases["crema_d/seq"] = seq_case(torch, exps["crema_d"], seed=9)
@@ -388,71 +429,80 @@ def kernel_phase(torch, ops, ref, exps):
     errs = {k: [] for k in ("fusion_loss_fwd", "fusion_loss_bwd",
                             "fusion_loss_reduce")}
     for label, c in cases.items():
-        K, T, V, M = c["shape"]
-        lg, lab, av = c["logits"], c["labels"], c["avail"]
-        p = ops.plan(K, T, V, M, c["seg"], lg[0].dtype)
-        print(f"[kernels] {label}: {case_label(torch, c)} ({p.regime} "
-              f"regime, width {p.fwd.width} / {p.bwd.width}, "
-              f"{p.fwd.blocks} / {p.bwd.blocks} blocks)")
-        for bwd, d in ((0, p.fwd), (1, p.bwd)):
-            c_smem = load().fusion_loss_smem_bytes(
-                ops.REGIMES[p.regime], bwd, d.width, V, M,
-                lg[0].element_size())
-            if c_smem != d.smem:
-                raise AssertionError(f"plan shared memory {d.smem} != the C "
-                                     f"side's {c_smem}")
-        print("  plan shared memory equal to the C side's: ok")
-        out = ops.fusion_loss_fwd(lg, lab, av, c["seg"])
-        dl, gsq, gdot = ops.fusion_loss_bwd(lg, lab, av, c["d_fused"],
-                                            c["d_modal"], out[3], out[5],
-                                            c["seg"])
-        _, gsq2, gdot2 = ops.fusion_loss_bwd(lg, lab, av, c["d_fused"],
-                                             c["d_modal"], out[3], out[5],
-                                             c["seg"])
-        torch.cuda.synchronize()
-        if not (torch.equal(gsq, gsq2) and torch.equal(gdot, gdot2)):
-            raise AssertionError("gsq/gdot differ between two runs")
-        print("  gsq/gdot bitwise equal across two runs: ok")
-        # the training step's backward writes no partials: same dlogits
-        dl_step, no_sq, no_dot = ops.fusion_loss_bwd(
-            lg, lab, av, c["d_fused"], c["d_modal"], out[3], out[5],
-            c["seg"], with_partials=False)
-        if (no_sq is not None or no_dot is not None
-                or not all(map(torch.equal, dl_step, dl))):
-            raise AssertionError("backward without partials differs")
-        print("  backward without partials: dlogits bitwise equal: ok")
-        stack = ops._plain_stack(lg, c["seg"])
-        names = ("fused_nll", "modal_nll", "fused_max", "fused_lse",
-                 "modal_max", "modal_lse")
-        for dtype in (torch.float32, torch.float64):
-            tag = "f32" if dtype == torch.float32 else "f64"
-            want = ref.fusion_loss_ref(stack, lab, av, dtype=dtype,
-                                       save_residuals=True)
-            sink = errs["fusion_loss_fwd"] if dtype == torch.float32 else []
-            for n, g, w in zip(names, out, want):
-                check(torch, f"fwd {n} vs plain {tag}", g, w, TOL_FWD, sink)
-            d_w, gsq_w, gdot_w = ref.fusion_loss_ref_grads(
-                stack, lab, av, c["d_fused"], c["d_modal"], dtype=dtype)
-            f32 = dtype == torch.float32
-            for m in range(M):
-                check(torch, f"bwd dlogits[{m}] vs plain {tag}", dl[m],
-                      d_w[m], TOL_BWD,
-                      errs["fusion_loss_bwd"] if f32 else [])
-            sink = errs["fusion_loss_reduce"] if f32 else []
-            check(torch, f"reduce gsq vs plain {tag}", gsq, gsq_w.T,
-                  TOL_SUM, sink)
-            check(torch, f"reduce gdot vs plain {tag}", gdot, gdot_w.T,
-                  TOL_SUM, sink)
-        # the autograd Function: broadcast head folded back to [K, B, V]
-        xs = [x.clone().requires_grad_() for x in lg]
-        f_nll, m_nll = ops.FusionLoss.apply(c["seg"], lab, av, *xs)
-        torch.autograd.backward((f_nll, m_nll), (c["d_fused"], c["d_modal"]))
-        for m, (x, s) in enumerate(zip(xs, c["seg"])):
-            # the Function casts the gradient to the operand's type
-            want = dl[m] if not s else dl[m].reshape(K, -1, s, V).sum(2)
-            check(torch, f"autograd grad[{m}] vs bwd kernel", x.grad,
-                  want.to(x.dtype), TOL_BWD, [])
+        fusion_check(torch, ops, ref, label, c, errs)
     return cases, {k: max(v) for k, v in errs.items()}
+
+
+def fusion_check(torch, ops, ref, label, c, errs):
+    """One case of the fusion-loss kernels against their plain versions
+    (float32 and float64), the plan's shared memory against the C side's,
+    the autograd Function against the backward kernel; the float32 errors
+    go into ``errs``."""
+    from repro_torch.kernels.fusion_loss.build import load
+    K, T, V, M = c["shape"]
+    lg, lab, av = c["logits"], c["labels"], c["avail"]
+    p = ops.plan(K, T, V, M, c["seg"], lg[0].dtype)
+    print(f"[kernels] {label}: {case_label(torch, c)} ({p.regime} "
+          f"regime, width {p.fwd.width} / {p.bwd.width}, "
+          f"{p.fwd.blocks} / {p.bwd.blocks} blocks)")
+    for bwd, d in ((0, p.fwd), (1, p.bwd)):
+        c_smem = load().fusion_loss_smem_bytes(
+            ops.REGIMES[p.regime], bwd, d.width, V, M,
+            lg[0].element_size())
+        if c_smem != d.smem:
+            raise AssertionError(f"plan shared memory {d.smem} != the C "
+                                 f"side's {c_smem}")
+    print("  plan shared memory equal to the C side's: ok")
+    out = ops.fusion_loss_fwd(lg, lab, av, c["seg"])
+    dl, gsq, gdot = ops.fusion_loss_bwd(lg, lab, av, c["d_fused"],
+                                        c["d_modal"], out[3], out[5],
+                                        c["seg"])
+    _, gsq2, gdot2 = ops.fusion_loss_bwd(lg, lab, av, c["d_fused"],
+                                         c["d_modal"], out[3], out[5],
+                                         c["seg"])
+    torch.cuda.synchronize()
+    if not (torch.equal(gsq, gsq2) and torch.equal(gdot, gdot2)):
+        raise AssertionError("gsq/gdot differ between two runs")
+    print("  gsq/gdot bitwise equal across two runs: ok")
+    # the training step's backward writes no partials: same dlogits
+    dl_step, no_sq, no_dot = ops.fusion_loss_bwd(
+        lg, lab, av, c["d_fused"], c["d_modal"], out[3], out[5],
+        c["seg"], with_partials=False)
+    if (no_sq is not None or no_dot is not None
+            or not all(map(torch.equal, dl_step, dl))):
+        raise AssertionError("backward without partials differs")
+    print("  backward without partials: dlogits bitwise equal: ok")
+    stack = ops._plain_stack(lg, c["seg"])
+    names = ("fused_nll", "modal_nll", "fused_max", "fused_lse",
+             "modal_max", "modal_lse")
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        want = ref.fusion_loss_ref(stack, lab, av, dtype=dtype,
+                                   save_residuals=True)
+        sink = errs["fusion_loss_fwd"] if dtype == torch.float32 else []
+        for n, g, w in zip(names, out, want):
+            check(torch, f"fwd {n} vs plain {tag}", g, w, TOL_FWD, sink)
+        d_w, gsq_w, gdot_w = ref.fusion_loss_ref_grads(
+            stack, lab, av, c["d_fused"], c["d_modal"], dtype=dtype)
+        f32 = dtype == torch.float32
+        for m in range(M):
+            check(torch, f"bwd dlogits[{m}] vs plain {tag}", dl[m],
+                  d_w[m], TOL_BWD,
+                  errs["fusion_loss_bwd"] if f32 else [])
+        sink = errs["fusion_loss_reduce"] if f32 else []
+        check(torch, f"reduce gsq vs plain {tag}", gsq, gsq_w.T,
+              TOL_SUM, sink)
+        check(torch, f"reduce gdot vs plain {tag}", gdot, gdot_w.T,
+              TOL_SUM, sink)
+    # the autograd Function: broadcast head folded back to [K, B, V]
+    xs = [x.clone().requires_grad_() for x in lg]
+    f_nll, m_nll = ops.FusionLoss.apply(c["seg"], lab, av, *xs)
+    torch.autograd.backward((f_nll, m_nll), (c["d_fused"], c["d_modal"]))
+    for m, (x, s) in enumerate(zip(xs, c["seg"])):
+        # the Function casts the gradient to the operand's type
+        want = dl[m] if not s else dl[m].reshape(K, -1, s, V).sum(2)
+        check(torch, f"autograd grad[{m}] vs bwd kernel", x.grad,
+              want.to(x.dtype), TOL_BWD, [])
 
 
 # ---------------------------------------------------------------------------
@@ -475,14 +525,21 @@ class Capture:
             key = tuple(tuple(a.shape) for a in args
                         if isinstance(a, self.torch.Tensor))
             if key not in self.seen:
-                self.seen[key] = dict(
-                    args=[a.detach().clone()
-                          if isinstance(a, self.torch.Tensor) else a
-                          for a in args], kw=dict(kw), label=self.label)
+                self.seen[key] = dict(args=[self._clone(a) for a in args],
+                                      kw=dict(kw), label=self.label)
             return self.orig(*args, **kw)
 
         setattr(self.module, self.name, wrapper)
         return self
+
+    def _clone(self, a):
+        """Tensors cloned, also inside a list or tuple (the fusion loss's
+        logits)."""
+        if isinstance(a, self.torch.Tensor):
+            return a.detach().clone()
+        if isinstance(a, (list, tuple)):
+            return type(a)(self._clone(x) for x in a)
+        return a
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
@@ -578,13 +635,22 @@ def backbone_kernel_phase(torch, found):
     against plain autograd at the main path's operands.  Returns the cases
     and the max abs error per kernel against the float32 plain version
     (float32 inputs)."""
+    attn, ssd = backbone_cases(torch, found)
+    errs = {"flash_attention_fwd": [], "ssd_chunk_fwd": []}
+    backbone_checks(torch, attn, ssd, found, errs)
+    return attn, ssd, {k: max(v) for k, v in errs.items()}
+
+
+def backbone_checks(torch, attn, ssd, found, errs):
+    """Flash attention and the SSD chunk kernel against their plain
+    versions in float32 and float64 at the cases ``attn`` and ``ssd``; the
+    autograd Functions against plain autograd at the operand records
+    ``found``.  The float32 errors go into ``errs``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.models import layers, mamba2
-    attn, ssd = backbone_cases(torch, found)
-    errs = {"flash_attention_fwd": [], "ssd_chunk_fwd": []}
     for c in attn:
         print(f"[kernels] flash_attention {c['label']}: {c['shape']} "
               f"({c['regime']} regime)")
@@ -643,7 +709,6 @@ def backbone_kernel_phase(torch, found):
         for i, (a, b) in enumerate(zip(g1, g2)):
             check(torch, f"{name} autograd grad[{i}] vs plain autograd", a,
                   b, TOL_GRAD, [])
-    return attn, ssd, {k: max(v) for k, v in errs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -879,13 +944,14 @@ def seq_phase(torch, MFLExperiment, counters):
     return counts
 
 
-def graph_counts(eng):
+def graph_counts(eng, since=None):
     """Kernel launches of the fused runs: each graph's captured launches
-    times its replays."""
+    times its replays (since the replay counts ``since``, when given)."""
     out = {}
     for g, launched in eng.graph_launches.items():
+        n = eng.replays[g] - (since or {}).get(g, 0)
         for k, v in launched.items():
-            out[k] = out.get(k, 0) + v * eng.replays[g]
+            out[k] = out.get(k, 0) + v * n
     return out
 
 
@@ -1041,6 +1107,443 @@ def fused_twin_phase(torch, MFLExperiment, rounds=2):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the scenario axis — grids over the fused round
+# ---------------------------------------------------------------------------
+def zoo_specs(arch="lstm-cnn", rows=None):
+    """The zoo's specs (seed i for row i, as ``default_zoo``)."""
+    from repro_torch.data.scenarios import ScenarioSpec
+    return [ScenarioSpec(seed=i, arch=arch, **ZOO_GEOM, **r)
+            for i, r in enumerate(ZOO_ROWS if rows is None else rows)]
+
+
+def zoo_grid(specs):
+    """(stacked grid, params, stores/test_sets kwargs) under the JAX zoo
+    benchmark's wireless parameters (``benchmarks/scenario_zoo.py:
+    run_zoo``: B_max = 1 MHz a client, E_add = 2e-4)."""
+    from repro_torch.data.scenarios import stack_scenarios
+    from repro_torch.wireless.params import WirelessParams
+    K = specs[0].K
+    params = WirelessParams(K=K, B_max=1e6 * K, E_add=2e-4)
+    grid = stack_scenarios(specs, params)
+    return grid, params, dict(
+        stores=grid.stores,
+        test_sets=(grid.test_features, grid.test_labels))
+
+
+def zoo_engine(specs, rounds, device=None, draw_source=None):
+    """The JAX zoo benchmark's set-up in the port: the stacked grid, a
+    ``from_store`` engine on row 0's store with JCSBA (J = K) and the
+    kernels on its path (the ``pallas`` engine token), the grid's xs;
+    returns (grid, engine, xs, stores/test_sets kwargs)."""
+    from repro_torch.fl.client import make_adapter
+    from repro_torch.fl.fused_round import (FusedRoundEngine,
+                                            draw_population_xs)
+    from repro_torch.wireless.channel import Channel
+    from repro_torch.wireless.policies import JCSBAPolicy
+    grid, params, kw = zoo_grid(specs)
+    device = device or DEVICE
+    K = params.K
+    pol = JCSBAPolicy(K, max_cohort=K)
+    eng = FusedRoundEngine.from_store(
+        grid.store_row(0), params, pol,
+        make_adapter(specs[0].dataset, specs[0].arch, loss_backend="pallas",
+                     use_kernels=True), device=device)
+    rng = np.random.default_rng(1)
+    xs = draw_population_xs(Channel(params, rng), rng, K, rounds,
+                            eval_every=ZOO_EVAL, include_final=True,
+                            policy=pol, device=device,
+                            draw_source=draw_source)
+    return grid, eng, xs, kw
+
+
+def _graph_label(key):
+    return {True: "eval", False: "no eval", "grid": "grid eval"}[key]
+
+
+class GridOperands:
+    """Records, per distinct shape, the operands a grid's eager warm-up
+    (the body run before each graph's capture) hands the kernel wrappers
+    into ``found`` — the fusion backward (which also carries the
+    forward's operands), attention, the SSD chunk and the SSD forward —
+    for ``grid_kernel_phase`` to hold against the plain versions."""
+
+    def __init__(self, torch, found, label):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.fusion_loss import ops as fl_ops
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
+        self.found = found
+        self.caps = {
+            "fusion_bwd": Capture(torch, fl_ops, "fusion_loss_bwd", label),
+            "attn": Capture(torch, fa_ops, "flash_attention", label),
+            "ssd_chunk": Capture(torch, ssd_ops, "ssd_chunk", label),
+            "ssd_forward": Capture(torch, ssd_ops, "ssd_forward", label)}
+
+    def __enter__(self):
+        for c in self.caps.values():
+            c.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for k, c in self.caps.items():
+            c.__exit__(*exc)
+            for key, rec in c.seen.items():
+                self.found.setdefault(k, {}).setdefault(key, rec)
+
+
+def _capture_grid(torch, eng, grid, xs, found, label):
+    """A 1-row grid of the first two rounds that captures their graphs
+    (round 0 evaluates on the grid's split; round 1 is the no-eval graph
+    unless it is also the final round), the warm-up's operands recorded
+    into ``found``."""
+    from repro_torch.core.trees import tree_map
+    with GridOperands(torch, found, label):
+        eng.scan_scenario_grid(
+            {k: v[:1] for k, v in grid.overrides.items()}, eng.fresh_carry(),
+            tree_map(lambda x: x[:2], xs),
+            stores=grid.stores.row(slice(0, 1)),
+            test_sets=({m: x[:1] for m, x in grid.test_features.items()},
+                       grid.test_labels[:1]))
+    torch.cuda.synchronize()
+
+
+def _run_launches(eng, since, read, label):
+    """(launches, replays) of one grid run after its graphs were captured:
+    each graph's captured launches times its replays in that run
+    (``since``: the replay counts before it).  The wrappers' own counts,
+    set to 0 just before the run, must be 0: nothing launched outside the
+    graphs."""
+    outside = {k: v for k, v in read().items() if v}
+    if outside:
+        raise AssertionError(f"{label}: launches outside the graphs "
+                             f"{outside}")
+    return graph_counts(eng, since), {
+        _graph_label(g): n - since.get(g, 0) for g, n in eng.replays.items()}
+
+
+def _grid_times(torch, label, run, S, R):
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    print(f"[scenario] {label}: {S} rows x {R} rounds in {wall:.3f} ms "
+          f"({wall / (S * R):.3f} ms a scenario-round)")
+    return out, wall
+
+
+def _rows_err(c, a, carries, auxs, s):
+    """(participants equal, params max|err|) of grid row ``s`` against a
+    reference run of that row (carry ``c``, aux ``a``; any device)."""
+    from repro_torch.core.trees import tree_leaves
+    same = all(bool((x.cpu() == y[s].cpu()).all())
+               for x, y in ((a.ok, auxs.ok), (a.a, auxs.a)))
+    err = max(float((x.cpu() - y[s].cpu()).abs().max())
+              for x, y in zip(tree_leaves(c.params),
+                              tree_leaves(carries.params)))
+    return same, err
+
+
+def zoo_phase(torch, counters, found):
+    """The JAX benchmark's 12-row zoo (iemocap, K=10, 120 samples a
+    client, 128 test samples, 30 rounds, eval every 5): one
+    ``scan_scenario_grid`` with per-scenario stores and test splits,
+    after a 1-row 2-round grid that captures the two graphs (its warm-up's
+    kernel operands recorded into ``found``); 2 rows x 3 rounds replayed
+    against the body run eagerly on the card and against the CPU on
+    CPU-drawn bits; the swap's device time.  Returns the launches of the
+    timed zoo run (captured times its replays)."""
+    from repro_torch.core.trees import tree_leaves, tree_map
+    from repro_torch.fl.fused_round import tree_row
+    reset, read = counters
+    specs = zoo_specs()
+    grid, eng, xs, kw = zoo_engine(specs, ZOO_ROUNDS)
+    S, R = grid.n, ZOO_ROUNDS
+    _capture_grid(torch, eng, grid, xs, found, "lstm-cnn zoo")
+    caps = {_graph_label(g): round(v, 3)
+            for g, v in eng.capture_seconds.items()}
+    reset()
+    since = dict(eng.replays)
+    (carries, auxs), wall = _grid_times(
+        torch, "zoo (iemocap K=10 n=1200 JCSBA, graphs captured)",
+        lambda: eng.scan_scenario_grid(grid.overrides, eng.fresh_carry(),
+                                       xs, **kw), S, R)
+    counts, replays = _run_launches(eng, since, read, "zoo")
+    ok = auxs.ok.cpu().numpy()
+    emask = auxs.eval_mask.cpu().numpy()
+    mm = auxs.metrics["multimodal"].cpu().numpy()
+    spent = carries.spent.sum(-1).cpu().numpy()
+    print(f"[scenario] zoo: captures {eng.capture_count} for the whole zoo "
+          f"(by the 1-row 2-round grid before it; capture s {caps}); the "
+          f"timed run's replays {replays}; launches a graph "
+          f"{ {_graph_label(g): v for g, v in eng.graph_launches.items()} }"
+          f"; the timed run's launches (captured x its replays) {counts}; "
+          f"none outside the graphs")
+    for s, spec in enumerate(grid.specs):
+        print(f"[scenario] zoo row {s:2d} {spec.label():24s} final "
+              f"multimodal {mm[s, -1]:.4f} (eval rounds "
+              f"{np.flatnonzero(emask[s]).tolist()}), mean participants "
+              f"{ok[s].sum(-1).mean():.2f}, energy {spent[s]:.6f} J")
+    if eng.capture_count != 2:
+        raise AssertionError(f"zoo: {eng.capture_count} captures, "
+                             f"expected 2")
+    if not (emask[:, -1].all() and np.isfinite(mm[emask]).all()):
+        raise AssertionError("zoo: a final or flagged metric is missing")
+    if len({tuple(r.sum(-1)) for r in ok}) < 2:
+        raise AssertionError("zoo: every row scheduled alike")
+    for k in ARCH_KERNELS["lstm-cnn"]:
+        if not counts.get(k):
+            raise AssertionError(f"zoo: {k} was not launched")
+    # 2 rows x 3 rounds: the replays against the body run eagerly
+    two = zoo_specs(rows=ZOO_ROWS[:2])
+    g2, _, kw2 = zoo_grid(two)
+    xs3 = tree_map(lambda x: x[:3], xs)
+    c2, a2 = eng.scan_scenario_grid(g2.overrides, eng.fresh_carry(), xs3,
+                                    **kw2)
+    for s in range(2):
+        ovr, store, test = eng._grid_row(g2.overrides, s, **kw2)
+        c, a = eng._scan_one_scenario(ovr, store, test, eng.fresh_carry(),
+                                      xs3)
+        same, err = _rows_err(c, a, c2, a2, s)
+        print(f"[scenario] zoo row {s} (3 rounds, graph replays) vs the "
+              f"eager body on the card: participants "
+              f"{'equal' if same else 'DIFFER'}, params max|err| {err:.3e} "
+              f"(tol 1e-4)")
+        if not same or err > 1e-4:
+            raise AssertionError("zoo replays disagree with the eager body")
+    # the same 2 rows x 3 rounds on the card and on the CPU, CPU-drawn bits
+    gg, ge, gxs, gkw = zoo_engine(two, 3, draw_source=cpu_draws)
+    cg, ag = ge.scan_scenario_grid(gg.overrides, ge.fresh_carry(), gxs,
+                                   **gkw)
+    cgrid, ceng, cxs, ckw = zoo_engine(two, 3, device="cpu",
+                                       draw_source=cpu_draws)
+    cc, ac = ceng.scan_scenario_grid(cgrid.overrides, ceng.fresh_carry(),
+                                     cxs, **ckw)
+    for s in range(2):
+        same, err = _rows_err(tree_row(cc, s), tree_row(ac, s), cg, ag, s)
+        print(f"[scenario] zoo row {s} (3 rounds) on the card vs the cpu, "
+              f"same cpu-drawn bits: participants "
+              f"{'equal' if same else 'DIFFER'}, params max|err| {err:.3e} "
+              f"(tol 1e-4)")
+        if not same or err > 1e-4:
+            raise AssertionError("zoo card and cpu runs disagree")
+    # the swap: one scenario's rows into the static buffers
+    ovr, stores, tests, _ = eng._grid_inputs(grid.overrides, **kw)
+    keep = [(t, t.clone()) for t in
+            [eng._solver_tmpl[k] for k in ovr] + eng._store.leaves()]
+    nbytes = sum(v[0].numel() * v.element_size() for v in ovr.values()) \
+        + sum(x[0].numel() * x.element_size() for x in stores.leaves()) \
+        + sum(x[0].numel() * x.element_size()
+              for x in tree_leaves(tests[0]) + [tests[1]])
+    swap = time_ms(torch, lambda: eng._swap_in(ovr, stores, tests, 3),
+                   iters=50, warmup=5)
+    swap_dev = device_ms(torch, lambda: eng._swap_in(ovr, stores, tests, 3),
+                         iters=20)
+    for t, v in keep:
+        t.copy_(v)
+    per = wall / (S * R)
+    print(f"[scenario] swap of one scenario ({nbytes / 1e6:.3f} MB: "
+          f"overrides, store, test split): {swap:.6f} ms (CUDA events, "
+          f"host enqueue included), device "
+          + ("not measured" if swap_dev is None else f"{swap_dev:.6f} ms")
+          + f"; {swap / (per * R):.4%} of a scenario's {R} rounds "
+          f"({per * R:.3f} ms)")
+    return counts
+
+
+def v_grid_phase(torch, MFLExperiment, counters, found):
+    """The dense V grid (``benchmarks/v_frontier.py:DENSE_V_GRID``) over
+    paper IEMOCAP, K=10, n=1200, E_add = 2e-4 (the Q>0 branch), 40 rounds,
+    eval every 5, through ``scan_v_grid`` after a 1-V 2-round grid that
+    captures the two graphs (its warm-up's operands recorded into
+    ``found``); the Q>0 population kernel's device ms a round, from a
+    profiled 1-V run.  Returns the launches of the timed V-grid run."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.trees import tree_map
+    from repro_torch.fl.fused_round import draw_round_xs
+    from repro_torch.wireless.params import WirelessParams
+    exp = MFLExperiment("iemocap", K=10, n_samples=1200,
+                        engine="fused:pallas", eval_every=ZOO_EVAL,
+                        params=WirelessParams(K=10, B_max=1e7, E_add=2e-4))
+    eng = exp._get_fused_engine()
+    R = V_ROUNDS
+    xs = draw_round_xs(exp, R, include_final=True)
+    reset, read = counters
+    with GridOperands(torch, found, "lstm-cnn V grid"):
+        eng.scan_v_grid(DENSE_V_GRID[:1], exp._carry,
+                        tree_map(lambda x: x[:2], xs))
+    torch.cuda.synchronize()
+    reset()
+    since = dict(eng.replays)
+    (carries, auxs), wall = _grid_times(
+        torch, "V grid (iemocap K=10 n=1200 JCSBA E_add=2e-4, graphs "
+               "captured)",
+        lambda: eng.scan_v_grid(DENSE_V_GRID, exp._carry, xs),
+        len(DENSE_V_GRID), R)
+    counts, replays = _run_launches(eng, since, read, "V grid")
+    ok = auxs.ok.cpu().numpy()
+    mm = auxs.metrics["multimodal"].cpu().numpy()
+    spent = carries.spent.sum(-1).cpu().numpy()
+    qmax = carries.Q.amax(-1).cpu().numpy()
+    parts = ok.sum((1, 2))
+    for i, V in enumerate(DENSE_V_GRID):
+        print(f"[scenario] V={V:<8g} final multimodal {mm[i, -1]:.4f}, "
+              f"participants {int(parts[i])} over {R} rounds, energy "
+              f"{spent[i]:.6f} J, max Q {qmax[i]:.6f}")
+    print(f"[scenario] V grid: distinct participant counts across V "
+          f"{sorted(set(int(p) for p in parts))}; captures "
+          f"{eng.capture_count} (by the 1-V 2-round grid before it); the "
+          f"timed run's replays {replays}, launches (captured x its "
+          f"replays) {counts}; none outside the graphs")
+    if eng.capture_count != 2 or not np.isfinite(mm[:, -1]).all():
+        raise AssertionError("V grid: captures or final metrics wrong")
+    if not (qmax > 0).any():
+        raise AssertionError("V grid: the queues never grew (no Q>0 round)")
+    # the population kernel's device time in a V-grid round: one V's 40
+    # rounds profiled (its queues grow as the grid's do)
+    V1 = DENSE_V_GRID[len(DENSE_V_GRID) // 2]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.scan_v_grid([V1], exp._carry, xs)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) == cuda]
+    busy = sum(_device_us(e) for e in ev) / 1e3
+    pop = [e for e in ev if "jcsba_population_kernel" in e.key]
+    if not ev or not pop:
+        print("[scenario] V grid profile: no device events; the population "
+              "kernel's share not measured")
+    else:
+        pop_ms = sum(_device_us(e) for e in pop) / 1e3
+        n = sum(e.count for e in pop)
+        # launch by launch: the Q>0 branch (the κ/φ⁻¹ bisections) takes
+        # tens of µs where the closed-form branches take a few
+        durs = [e.time_range.elapsed_us() for e in prof.events()
+                if "jcsba_population_kernel" in e.name
+                and getattr(e, "device_type", None) == cuda
+                and hasattr(e, "time_range")]
+        slow = [d for d in durs if d > Q_BRANCH_US]
+        split = (f"; {len(slow)} of {len(durs)} launches over "
+                 f"{Q_BRANCH_US} µs (the Q>0 branch): "
+                 f"{sum(slow) / 1e3 / R:.3f} ms a round, "
+                 f"{sum(slow) / 1e3 / busy:.2%} of the busy time"
+                 if len(durs) == n else "; per-launch split not measured")
+        print(f"[scenario] V={V1:g} ({R} rounds, profiled): device busy "
+              f"{busy / R:.3f} ms a round; population kernel {n} launches, "
+              f"{pop_ms / R:.3f} ms a round ({pop_ms / busy:.2%} of the "
+              f"busy time; {pop_ms / n:.6f} ms a launch){split}")
+    return counts
+
+
+def grid_v_graph_phase(torch):
+    """The population kernel with V read from the device: one captured
+    launch at the main path's shape (K=10, P=20 rows, queues > 0)
+    replayed at two V copied into its V tensor, each against the plain
+    version at that V.  Returns the max abs J error."""
+    from repro_torch.kernels.jcsba_solver import ops, ref
+    from repro_torch.kernels.jcsba_solver.checks import (antibody_rows,
+                                                         synthetic_round)
+    from repro_torch.wireless.solver import SolverHyper, torchsolver
+    hp = SolverHyper()
+    d = torchsolver.to_device(synthetic_round(10, 3), DEVICE)
+    A = torch.as_tensor(antibody_rows(10, 20, 7), device=DEVICE)
+    bm, ok = ref.bmin(d["gamma"], d["h"], d["tau_rem"], d["B_max"],
+                      d["p_tx"], d["N0"], hp)
+    ops.population_objective(A, bm, ok, d, hp)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        J, _, feas = ops.population_objective(A, bm, ok, d, hp)
+    errs, seen = [], []
+    for V in (0.5, 40.0):
+        d["V"].fill_(V)
+        g.replay()
+        J_w, _, feas_w = ref.population_objective(A, bm, ok, d, hp)
+        torch.cuda.synchronize()
+        if not torch.equal(feas, feas_w):
+            raise AssertionError(f"V={V}: feasibility differs from plain")
+        fin = torch.isfinite(J_w)
+        check(torch, f"captured population kernel, V={V} (device) J",
+              J[fin], J_w[fin], TOL_SOLVER_J, errs)
+        seen.append(J[fin].clone())
+    if torch.equal(seen[0], seen[1]):
+        raise AssertionError("the replays at two V gave one J")
+    print(f"[scenario] population kernel in one captured graph at V = 0.5 "
+          f"and 40 (device V, K=10, P=20, Q>0): J max|err| {max(errs):.3e} "
+          f"(tol rtol {TOL_SOLVER_J['rtol']:g}, atol "
+          f"{TOL_SOLVER_J['atol']:g})")
+    return max(errs)
+
+
+def arch_grid_phase(torch, arch, counters, found):
+    """A 2-row grid on a backbone at full width (the JAX FL encoder
+    presets), 2 rounds (both evaluate: the first of the cadence and the
+    final), after a 1-row grid that captures the grid-eval graph (its
+    warm-up's operands recorded into ``found``): finite final
+    metrics, the mixer kernel launched in the replays.  Returns the
+    launches of the timed 2-row run."""
+    reset, read = counters
+    specs = zoo_specs(arch, ZOO_ROWS[:2])
+    grid, eng, xs, kw = zoo_engine(specs, 2)
+    _capture_grid(torch, eng, grid, xs, found, f"{arch} grid")
+    captured = eng.capture_count
+    reset()
+    since = dict(eng.replays)
+    (carries, auxs), _ = _grid_times(
+        torch, f"{arch} grid (graphs captured)",
+        lambda: eng.scan_scenario_grid(grid.overrides, eng.fresh_carry(),
+                                       xs, **kw), 2, 2)
+    counts, replays = _run_launches(eng, since, read, f"{arch} grid")
+    mm = auxs.metrics["multimodal"][:, -1].cpu().numpy()
+    print(f"[scenario] {arch} grid: final multimodal {mm.tolist()}, "
+          f"participants {auxs.ok.sum((1, 2)).tolist()}, captures "
+          f"{eng.capture_count}; the timed run's replays {replays}, "
+          f"launches (captured x its replays) {counts}; none outside the "
+          f"graphs")
+    if eng.capture_count != captured or not np.isfinite(mm).all():
+        raise AssertionError(f"{arch} grid: the timed run captured, or a "
+                             f"final metric is not finite")
+    for k in ARCH_KERNELS[arch]:
+        if not counts.get(k):
+            raise AssertionError(f"{arch} grid: {k} was not launched")
+    return counts
+
+
+def grid_kernel_phase(torch, ops, ref, found):
+    """The kernels against their plain versions at the operands the grids'
+    warm-ups handed them (``GridOperands``): the fusion loss at each
+    grid's cohort shape (the zoo's T=120 leaves each client a 24-row tail
+    block in the rows regime), attention and the SSD chunk at the backbone
+    grids' cohort and eval shapes, the autograd Functions at their
+    operands.  Returns (fusion cases, attention cases, SSD cases, max abs
+    error per kernel against the float32 plain version)."""
+    errs = {k: [] for k in ("fusion_loss_fwd", "fusion_loss_bwd",
+                            "fusion_loss_reduce", "flash_attention_fwd",
+                            "ssd_chunk_fwd")}
+    cases = {}
+    for rec in found.get("fusion_bwd", {}).values():
+        lg, lab, av, df, dm = rec["args"][:5]
+        K, T = lab.shape
+        label = f"grid {rec['label']}"
+        cases[label] = dict(logits=list(lg), labels=lab, avail=av,
+                            d_fused=df, d_modal=dm,
+                            seg=tuple(rec["args"][7]),
+                            shape=(K, T, lg[0].shape[-1], len(lg)))
+        fusion_check(torch, ops, ref, label, cases[label], errs)
+    attn = [attn_case(torch, *rec["args"], rec["kw"].get("window"),
+                      f"grid {rec['label']}")
+            for rec in found.get("attn", {}).values()]
+    ssd = [ssd_case(*rec["args"], f"grid {rec['label']}")
+           for rec in found.get("ssd_chunk", {}).values()]
+    backbone_checks(torch, attn, ssd,
+                    {k: found.get(k, {}) for k in ("attn", "ssd_forward")},
+                    errs)
+    empty = [k for k, v in errs.items() if not v]
+    if empty:
+        raise AssertionError(f"grids: no operands recorded for {empty}")
+    return cases, attn, ssd, {k: max(v) for k, v in errs.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the JCSBA solver kernels against their plain versions
 # ---------------------------------------------------------------------------
 class record_launches:
@@ -1125,7 +1628,8 @@ def solver_work(torch, d, A, bm, ok, hp):
     Q, B_max = d["Q"], d["B_max"]
     P, K = A.shape
     M = d["zeta2"].shape[0]
-    nbytes = P * K + 6 * 4 * K + K + M * 4 + 2 * M * K * 4 + M * K + P * 5
+    nbytes = (P * K + 6 * 4 * K + K + M * 4 + 2 * M * K * 4 + M * K + 4
+              + P * 5)
     Af = A.to(torch.float32)
     s = Af.sum(-1)
     tot = (Af * bm).sum(-1)
@@ -1568,8 +2072,34 @@ def main() -> int:
             by_path["fused"][k] = by_path["fused"].get(k, 0) + v
     fused_twin_phase(torch, MFLExperiment)
 
+    # phase 3c: the scenario axis — the zoo, the V grid, the backbones'
+    # grids (launches: each timed grid run's captured launches times its
+    # replays, the capturing 1-row grids left out), the kernels at the
+    # grids' recorded operands, and the population kernel reading V from
+    # the device in a captured graph
+    grid_found = {}
+    runs = [zoo_phase(torch, counters, grid_found),
+            v_grid_phase(torch, MFLExperiment, counters, grid_found)]
+    runs += [arch_grid_phase(torch, arch, counters, grid_found)
+             for arch in ("transformer", "ssd")]
+    by_path["scenario"] = {}
+    for counts in runs:
+        for k, v in counts.items():
+            by_path["scenario"][k] = by_path["scenario"].get(k, 0) + v
+    g_cases, g_attn, g_ssd, g_err = grid_kernel_phase(torch, ops, ref,
+                                                      grid_found)
+    for k, v in g_err.items():
+        max_err[k] = max(max_err[k], v)
+    # timed beside the main path's shapes (``other_shapes``)
+    cases.update(g_cases)
+    attn += g_attn
+    ssd += g_ssd
+    v_err = grid_v_graph_phase(torch)
+
     # phase 3b: the solver kernels at the main path's captured round
     solver_rows_, hp, solver_err = solver_phase(torch, capture.seen)
+    solver_err["jcsba_population_kernel"] = max(
+        solver_err["jcsba_population_kernel"], v_err)
     max_err.update(solver_err)
 
     # phase 4: times
@@ -1589,7 +2119,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             # the batched main path's launches are ``launches``; the seq
-            # loop's, and the fused loop's (captured times replays)
+            # loop's, the fused loop's and the four timed scenario grids'
+            # (captured times replays)
             "launches_by_path": {"batched": launches[name],
                                  **{p: c.get(name, 0)
                                     for p, c in by_path.items()}},

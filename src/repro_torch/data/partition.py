@@ -151,6 +151,32 @@ class ClientStore:
                               for f, v in vals.items()},
                            modalities=self.modalities)
 
+    @staticmethod
+    def stack(stores: Sequence["ClientStore"]) -> "ClientStore":
+        """Numpy stores of one geometry stacked leafwise: every leaf gains
+        a leading [S] axis (a scenario grid's stores)."""
+        s0 = stores[0]
+        vals = {}
+        for f in _STORE_FIELDS:
+            v0 = getattr(s0, f)
+            vals[f] = ({m: np.stack([getattr(s, f)[m] for s in stores])
+                        for m in v0} if isinstance(v0, dict) else
+                       np.stack([getattr(s, f) for s in stores]))
+        return ClientStore(**vals, modalities=s0.modalities)
+
+    def row(self, s: int) -> "ClientStore":
+        """Row ``s`` of a stacked store (``stack``'s inverse)."""
+        return self._map(lambda x: x[s])
+
+    def leaves(self) -> list:
+        """Every leaf: fields in order, modalities sorted — so the leaves
+        of two stores of one geometry pair up."""
+        out = []
+        for f in _STORE_FIELDS:
+            v = getattr(self, f)
+            out += [v[m] for m in sorted(v)] if isinstance(v, dict) else [v]
+        return out
+
     def to(self, device) -> "ClientStore":
         """The same store as tensors on ``device`` (one copy a leaf)."""
         return self._map(lambda x: torch.as_tensor(np.asarray(x),

@@ -33,6 +33,13 @@ a fused run schedules as the host loop does.
 
 The aux rows of a round are packed into one float32 vector on the device;
 ``run`` brings a round's (or a scan's [R, n]) rows back in one copy.
+
+What the JAX package's ``vmap`` over scenarios computes
+(``scan_scenario_grid``) runs here row by row over the same captured
+round: each scenario's solver-data rows, store and test split are copied
+into the static tensors the graph reads (the population kernel reads V
+from one of them), its R rounds replay, and its final carry and aux rows
+are copied out.
 """
 from __future__ import annotations
 
@@ -95,14 +102,16 @@ def tree_row(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
-def draw_round_xs(exp, rounds: int, eval_every: Optional[int] = None
-                  ) -> RoundXs:
+def draw_round_xs(exp, rounds: int, eval_every: Optional[int] = None,
+                  include_final: bool = False) -> RoundXs:
     """``rounds`` rounds of the experiment's randomness, consumed in the
     host loop's order — per round K channel draws (``Channel.draw``), the
     one policy seed, then the K client seeds (``_draw_client_seeds``) —
     with each round's policy bits made from its seed by the scheduler's
     draw source (``round_draws``).  ``eval_flag`` marks the rounds the host
-    loop would evaluate (``(exp._round + t) % exp.eval_every == 0``).
+    loop would evaluate (``(exp._round + t) % exp.eval_every == 0``);
+    ``include_final`` also flags the last round, so a sweep's every curve
+    ends with the final model's metrics whatever the cadence.
 
     ``eval_every`` is deprecated: the cadence is the experiment's setting
     (``MFLExperiment(eval_every=...)``)."""
@@ -125,17 +134,21 @@ def draw_round_xs(exp, rounds: int, eval_every: Optional[int] = None
         cseed[t] = exp._draw_client_seeds()
         flags[t] = (exp._round + t) % ee == 0
         bits.append(exp.scheduler.round_draws(int(draw[t])))
+    if include_final and rounds:
+        flags[-1] = True
     return _stack_xs(h, draw, cseed, flags, bits, exp.device)
 
 
 def draw_population_xs(channel, rng, K: int, rounds: int,
-                       eval_every: int = 0, *,
+                       eval_every: int = 0, include_final: bool = False, *,
                        policy, device="cuda", draw_source=None) -> RoundXs:
     """``draw_round_xs`` for ``from_store`` engines: per round K channel
     draws, one policy seed, K client seeds, from an explicit ``Channel``
     and numpy generator, and ``policy``'s bits from the seed
     (``draw_source(policy, seed)``, or a generator on ``device`` seeded by
-    it).  ``eval_every <= 0`` flags no round."""
+    it).  ``eval_every <= 0`` flags no round of the cadence;
+    ``include_final`` flags the last round all the same (the scenario
+    zoo's convention)."""
     dev = resolve_device(device)
     h = np.empty((rounds, K), np.float32)
     draw = np.empty(rounds, np.int64)
@@ -153,6 +166,8 @@ def draw_population_xs(channel, rng, K: int, rounds: int,
                             dev))
         bits.append({k: torch.as_tensor(v, device=dev)
                      for k, v in raw.items()})
+    if include_final and rounds:
+        flags[-1] = True
     return _stack_xs(h, draw, cseed, flags, bits, dev)
 
 
@@ -175,16 +190,19 @@ class FusedRoundEngine:
     * ``scan(carry, xs)`` — R rounds (xs leaves stacked [R, ...]), with no
       read-back until the end;
     * ``run(carry, xs, scanned)`` — either, timed, with the aux on the host;
+    * ``scan_scenario_grid`` / ``scan_v_grid`` — whole experiments over a
+      grid of scenarios, the captured round replayed row by row;
     * ``init_carry()`` / ``export_carry()`` — host state ↔ carry.
 
     On a card ``step`` replays a captured CUDA graph (one per eval flag,
     captured at first use after an eager warm-up on a side stream, sharing
-    one memory pool); the carry it returns is the engine's static buffers,
+    one memory pool, and a third, ``"grid"``, for eval on a scenario grid's
+    test split); the carry it returns is the engine's static buffers,
     overwritten by the next step.  ``capture_count`` counts captures — the
     contract is many rounds, one capture a graph; ``capture_seconds`` holds
     each graph's warm-up and capture time, ``graph_launches`` its kernel
     launches (the wrappers count only when Python launches, not on a
-    replay) and ``replays`` its replays.
+    replay) and ``replays`` its replays, each keyed by graph.
 
     ``from_store`` builds an engine straight from a ``ClientStore``,
     without an ``MFLExperiment``.
@@ -221,8 +239,9 @@ class FusedRoundEngine:
         ``synthetic_population``), ``WirelessParams`` and a policy: the
         solver template comes from the store's cost and ownership arrays,
         the tracker initials are ``BoundState``'s.  Use ``fresh_carry()``
-        for the matching initial carry; client 0's shard stands in as the
-        held-out split."""
+        for the matching initial carry; a copy of client 0's shard stands
+        in as the held-out split.  The engine keeps its own copy of the
+        store (a scenario grid swaps rows into it)."""
         self = cls.__new__(cls)
         self.exp = None
         self.policy = policy
@@ -257,11 +276,11 @@ class FusedRoundEngine:
             "has": has,
             "D": sizes,
         }
-        dstore = store.to(dev)
+        dstore = store.to(dev)._map(torch.clone)
         gp = adapter.init_global(torch.Generator().manual_seed(seed), dev)
         self._global_params0 = gp
-        test = ({m: dstore.features[m][0] for m in self.mods},
-                dstore.labels[0])
+        test = ({m: dstore.features[m][0].clone() for m in self.mods},
+                dstore.labels[0].clone())
         self._setup(dev, tmpl, params, dstore, gp, adapter, test)
         return self
 
@@ -284,11 +303,14 @@ class FusedRoundEngine:
         self._drop_rows = {m: i for i, m in
                            enumerate(getattr(self.policy, "drop_mods", ()))}
         self.capture_count = 0
-        self.capture_seconds: Dict[bool, float] = {}
-        self.graph_launches: Dict[bool, dict] = {}
-        self.replays: Dict[bool, int] = {}
-        self._graphs: Dict[bool, torch.cuda.CUDAGraph] = {}
+        self.capture_seconds: Dict[Any, float] = {}
+        self.graph_launches: Dict[Any, dict] = {}
+        self.replays: Dict[Any, int] = {}
+        self._graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
         self._pool = None
+        # a scenario grid's held-out split: static buffers at the grid's
+        # test shape, read by the grid's own eval graph (key "grid")
+        self._grid_test = None
         self._static_carry: Optional[FusedCarry] = None
         self._static_xs: Optional[RoundXs] = None
         self._static_aux: Optional[torch.Tensor] = None
@@ -363,13 +385,20 @@ class FusedRoundEngine:
     # the round
     # ------------------------------------------------------------------
     def _round_step(self, carry: FusedCarry, xs: RoundXs, store,
-                    evaluate: bool):
+                    evaluate: bool, overrides=None, test_set=None):
         """One round, every step on the device, no read-back; the steps
-        of the JAX package's body (``fl/fused_round.py:434-569``)."""
+        of the JAX package's body (``fl/fused_round.py:434-569``).
+
+        ``overrides`` replaces solver-template entries for this round (a
+        scenario's V, ownership, Eq. 12 denominators and costs, as device
+        tensors); ``test_set`` is a ``(features, labels)`` pair evaluated
+        in place of the engine's held-out split."""
         dev = carry.Q.device
         # 1. server decision: the policy's step on the round's draws; the
         # policy state (warm start, cursor) rides in the carry
         data = dict(self._solver_tmpl)
+        if overrides:
+            data.update(overrides)
         data["Q"], data["h"] = carry.Q, xs.h
         data["zeta2"] = torch.square(carry.zeta)
         data["delta2"] = torch.square(carry.delta)
@@ -423,12 +452,13 @@ class FusedRoundEngine:
 
         # 7. eval of the fresh globals on the held-out split, on the
         # rounds the cadence flags
+        tf, tl = test_set if test_set is not None else \
+            (self._test_feats, self._test_labels)
         if evaluate:
-            metrics = eval_metrics(new_params, self._test_feats,
-                                   self._test_labels,
+            metrics = eval_metrics(new_params, tf, tl,
                                    logits_fn=self._eval_logits)
         else:
-            metrics = nan_metrics(self._test_feats, dev)
+            metrics = nan_metrics(tf, dev)
 
         new_carry = FusedCarry(new_params, pstate, Qn, spent,
                                torch.stack(zs), torch.stack(ds), model_dist)
@@ -465,16 +495,19 @@ class FusedRoundEngine:
     # ------------------------------------------------------------------
     # CUDA graphs
     # ------------------------------------------------------------------
-    def _graph(self, evaluate: bool, carry: FusedCarry, xs: RoundXs):
-        """The captured round for this eval flag, captured at first use:
+    def _graph(self, key, carry: FusedCarry, xs: RoundXs, test_set=None):
+        """The captured round for ``key`` — True (eval on the engine's
+        held-out split), False (no eval) or ``"grid"`` (eval on a scenario
+        grid's static test buffers, ``test_set``) — captured at first use:
         static buffers from the first carry and xs, an eager warm-up of
         the body on a side stream (library loads, ``cudaFuncSetAttribute``,
         cuBLAS and cuDNN handles, the policies' static tables), then the
         capture, which also copies the new carry into the static carry and
         the packed aux into the static aux row.  A failed capture raises:
         there is no eager fallback on a card."""
-        if evaluate in self._graphs:
-            return self._graphs[evaluate]
+        if key in self._graphs:
+            return self._graphs[key]
+        evaluate = key is not False
         dev = self.device
         t0 = time.perf_counter()
         if self._static_carry is None:
@@ -492,7 +525,7 @@ class FusedRoundEngine:
             for _ in range(2):
                 _, aux = self._round_step(self._static_carry,
                                           self._static_xs, self._store,
-                                          evaluate)
+                                          evaluate, test_set=test_set)
                 packed = self._pack(aux)
         torch.cuda.current_stream(dev).wait_stream(side)
         if self._static_aux is None:
@@ -501,7 +534,8 @@ class FusedRoundEngine:
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g, pool=self._pool):
             new, aux = self._round_step(self._static_carry, self._static_xs,
-                                        self._store, evaluate)
+                                        self._store, evaluate,
+                                        test_set=test_set)
             self._static_aux.copy_(self._pack(aux))
             for d, s in zip(tree_leaves(self._static_carry),
                             tree_leaves(new)):
@@ -510,12 +544,12 @@ class FusedRoundEngine:
         if self._pool is None:
             self._pool = g.pool()
         self.capture_count += 1
-        self.capture_seconds[evaluate] = time.perf_counter() - t0
-        self.graph_launches[evaluate] = {k: after[k] - before.get(k, 0)
-                                         for k in after
-                                         if after[k] - before.get(k, 0)}
-        self.replays[evaluate] = 0
-        self._graphs[evaluate] = g
+        self.capture_seconds[key] = time.perf_counter() - t0
+        self.graph_launches[key] = {k: after[k] - before.get(k, 0)
+                                    for k in after
+                                    if after[k] - before.get(k, 0)}
+        self.replays[key] = 0
+        self._graphs[key] = g
         return g
 
     def _copy_carry(self, carry: FusedCarry):
@@ -523,13 +557,17 @@ class FusedRoundEngine:
                         tree_leaves(carry)):
             d.copy_(s)
 
-    def _step_packed(self, carry: FusedCarry, xs: RoundXs):
-        """(new carry, packed aux row [n] on the device)."""
+    def _step_packed(self, carry: FusedCarry, xs: RoundXs, test_set=None):
+        """(new carry, packed aux row [n] on the device); ``test_set``: a
+        scenario grid's static test buffers, evaluated in place of the
+        engine's held-out split."""
         evaluate = bool(xs.eval_flag)           # a host tensor: no sync
         if self.device.type != "cuda":
-            new, aux = self.step_eager(carry, xs)
+            new, aux = self._round_step(carry, xs, self._store, evaluate,
+                                        test_set=test_set)
             return new, self._pack(aux)
-        g = self._graph(evaluate, carry, xs)
+        key = "grid" if evaluate and test_set is not None else evaluate
+        g = self._graph(key, carry, xs, test_set)
         if carry is not self._static_carry:
             self._copy_carry(carry)
         sx = self._static_xs
@@ -538,7 +576,7 @@ class FusedRoundEngine:
         for k, v in sx.draws.items():
             v.copy_(xs.draws[k])
         g.replay()
-        self.replays[evaluate] += 1
+        self.replays[key] += 1
         return self._static_carry, self._static_aux
 
     def step_eager(self, carry: FusedCarry, xs: RoundXs):
@@ -552,11 +590,11 @@ class FusedRoundEngine:
         carry, row = self._step_packed(carry, xs)
         return carry, self._unpack(row.clone())
 
-    def _scan_packed(self, carry: FusedCarry, xs: RoundXs):
+    def _scan_packed(self, carry: FusedCarry, xs: RoundXs, test_set=None):
         R = xs.h.shape[0]
         rows = None
         for i in range(R):
-            carry, row = self._step_packed(carry, tree_row(xs, i))
+            carry, row = self._step_packed(carry, tree_row(xs, i), test_set)
             if rows is None:
                 rows = torch.empty((R,) + tuple(row.shape),
                                    dtype=row.dtype, device=row.device)
@@ -580,3 +618,204 @@ class FusedRoundEngine:
             carry, rows = self._step_packed(carry, xs)
         aux = self._unpack(rows.cpu().numpy())
         return carry, aux, time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # scenario grids
+    # ------------------------------------------------------------------
+    def scan_scenario_grid(self, overrides, carry: FusedCarry, xs: RoundXs,
+                           stores=None, test_sets=None, mesh="auto"):
+        """Whole experiments over a scenario grid: every row runs the full
+        R-round experiment from the shared initial ``carry`` on the shared
+        randomness ``xs`` (the controlled-comparison convention of the JAX
+        package's ``scan_scenario_grid``).
+
+        ``overrides`` is a dict of stacked solver-template entries, each
+        with a leading [S] scenario axis over the per-round shape (``V`` →
+        [S], ``gamma``/``tau_rem``/``tau_cmp``/``e_cmp``/``D`` → [S, K],
+        ``has``/``wbar`` → [S, M, K]; ``data/scenarios.py:stack_scenarios``
+        assembles it).  ``stores`` optionally stacks per-scenario
+        ``ClientStore``s ([S]-leading leaves, the engine's geometry; None:
+        every row reads the engine's store) and ``test_sets`` an
+        ``(features, labels)`` pair with [S]-leading leaves for
+        per-scenario eval.
+
+        One captured round serves every row: each scenario's rows are
+        copied into the static tensors the round reads (the solver
+        template's entries, the store, the grid's test buffers), then its R
+        rounds replay as ``scan`` replays them (on the CPU the body runs
+        eagerly on the same buffers).  Nothing is read back; afterwards the
+        engine's own buffers are put back.  Returns ``(carries, auxs)``:
+        ``FusedCarry`` leaves [S, ...], ``RoundAux`` leaves [S, R, ...], on
+        the device.
+
+        ``mesh``: None or ``"auto"`` run on the engine's one device; the
+        port has no mesh type, so any mesh raises ``NotImplementedError``
+        (sharded scenario and client axes are ROADMAP item 10)."""
+        self._one_device(mesh)
+        ovr, stores, test_sets, n_S = self._grid_inputs(overrides, stores,
+                                                        test_sets)
+        carries, rows = self._grid_packed(ovr, stores, test_sets, carry, xs,
+                                          n_S)
+        return carries, self._unpack(rows)
+
+    def scan_v_grid(self, V_grid, carry: FusedCarry, xs: RoundXs,
+                    mesh="auto"):
+        """Whole experiments over a drift-penalty grid — the paper's Fig. 4
+        V study: ``scan_scenario_grid({"V": V_grid})``, the engine's store
+        and test split shared by every row."""
+        return self.scan_scenario_grid(
+            {"V": np.asarray(V_grid, np.float32)}, carry, xs, mesh=mesh)
+
+    @staticmethod
+    def _one_device(mesh):
+        if mesh is None or (isinstance(mesh, str) and mesh == "auto"):
+            return
+        raise NotImplementedError(
+            f"mesh {mesh!r}: the port sweeps a grid on the engine's one "
+            f"device; sharded scenario and client axes are ROADMAP item 10 "
+            f"(the multi-device layer). Pass mesh=None")
+
+    def _on_device(self, x):
+        return x.to(self.device) if isinstance(x, torch.Tensor) else \
+            torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _grid_inputs(self, overrides, stores, test_sets):
+        """A grid's inputs on the engine's device, checked against its
+        geometry: (overrides, stores, test_sets, S)."""
+        slots = sorted(k for k, v in self._solver_tmpl.items()
+                       if isinstance(v, torch.Tensor))
+        bad = sorted(set(overrides) - set(slots))
+        if bad or not overrides:
+            raise ValueError(f"overrides {sorted(overrides)}: a grid "
+                             f"overrides one or more of the solver "
+                             f"template's device entries {slots}")
+        ovr = to_device({k: (v.detach().cpu().numpy()
+                             if isinstance(v, torch.Tensor) else v)
+                         for k, v in overrides.items()}, self.device)
+        n_S = None
+        for k, v in ovr.items():
+            if v.ndim == 0:
+                raise ValueError(f"override {k!r} has no scenario axis")
+            n_S = v.shape[0] if n_S is None else n_S
+            if v.shape[0] != n_S:
+                raise ValueError(f"override {k!r} has scenario axis "
+                                 f"{v.shape[0]}, expected {n_S}")
+            want = tuple(self._solver_tmpl[k].shape)
+            if tuple(v.shape[1:]) != want:
+                raise ValueError(f"override {k!r} rows {tuple(v.shape[1:])},"
+                                 f" expected {want}")
+        if stores is not None:
+            stores = stores.to(self.device)
+            for d, x in zip(self._store.leaves(), stores.leaves()):
+                if tuple(x.shape) != (n_S,) + tuple(d.shape):
+                    raise ValueError(f"stores leaf {tuple(x.shape)}, "
+                                     f"expected {(n_S,) + tuple(d.shape)}")
+        if test_sets is not None:
+            feats, labels = test_sets
+            if sorted(feats) != sorted(self.mods):
+                raise ValueError(f"test features {sorted(feats)}, expected "
+                                 f"{sorted(self.mods)}")
+            feats = {m: self._on_device(feats[m]) for m in sorted(feats)}
+            labels = self._on_device(labels)
+            if any(x.shape[:2] != labels.shape[:2] for x in feats.values()) \
+                    or labels.ndim != 2 or labels.shape[0] != n_S:
+                raise ValueError(f"test labels {tuple(labels.shape)}: "
+                                 f"expected [{n_S}, n_test] with features "
+                                 f"of the same leading axes")
+            test_sets = (feats, labels)
+        return ovr, stores, test_sets, n_S
+
+    def _grid_row(self, overrides, s: int, stores=None, test_sets=None):
+        """Row ``s`` of a grid's inputs on the engine's device: (override
+        rows, store or None, test split or None), as
+        ``_scan_one_scenario`` takes them."""
+        ovr, stores, test_sets, _ = self._grid_inputs(overrides, stores,
+                                                      test_sets)
+        return ({k: v[s] for k, v in ovr.items()},
+                None if stores is None else stores.row(s),
+                None if test_sets is None else
+                ({m: x[s] for m, x in test_sets[0].items()},
+                 test_sets[1][s]))
+
+    def _scan_one_scenario(self, overrides, store, test_set,
+                           carry: FusedCarry, xs: RoundXs):
+        """One scenario's whole experiment with the body run eagerly and
+        the scenario passed as arguments (``_grid_row``; store None: the
+        engine's), nothing swapped: the reference a grid's replays are
+        held against.  (final carry, RoundAux with [R]-leading leaves)."""
+        store = self._store if store is None else store
+        auxs = []
+        for i in range(xs.h.shape[0]):
+            x = tree_row(xs, i)
+            carry, aux = self._round_step(carry, x, store,
+                                          bool(x.eval_flag),
+                                          overrides=overrides,
+                                          test_set=test_set)
+            auxs.append(aux)
+        return carry, tree_map(lambda *a: torch.stack(a), *auxs)
+
+    def _grid_test_buffers(self, test_sets):
+        """Static test buffers at a grid's test shape, kept for the next
+        grid of that shape; another shape drops the grid's eval graph,
+        captured on the old buffers."""
+        feats, labels = test_sets
+        cur = self._grid_test
+        if cur is None or any(
+                cur[0][m].shape != feats[m].shape[1:]
+                or cur[0][m].dtype != feats[m].dtype for m in feats) \
+                or cur[1].shape != labels.shape[1:] \
+                or cur[1].dtype != labels.dtype:
+            self._grid_test = (
+                {m: torch.empty(x.shape[1:], dtype=x.dtype,
+                                device=self.device)
+                 for m, x in feats.items()},
+                torch.empty(labels.shape[1:], dtype=labels.dtype,
+                            device=self.device))
+            self._graphs.pop("grid", None)
+        return self._grid_test
+
+    def _swap_in(self, ovr, stores, test_sets, s: int):
+        """Scenario ``s``'s rows into the static tensors the round reads:
+        each a ``copy_`` into an address a graph captured, nothing
+        rebound."""
+        for k, v in ovr.items():
+            self._solver_tmpl[k].copy_(v[s])
+        if stores is not None:
+            for d, x in zip(self._store.leaves(), stores.leaves()):
+                d.copy_(x[s])
+        if test_sets is not None:
+            (tf, tl), (gf, gl) = test_sets, self._grid_test
+            for m, x in gf.items():
+                x.copy_(tf[m][s])
+            gl.copy_(tl[s])
+
+    def _grid_packed(self, ovr, stores, test_sets, carry: FusedCarry,
+                     xs: RoundXs, n_S: int):
+        """([S]-stacked final carries, packed aux rows [S, R, n]) of a
+        grid, with the engine's template entries, store and static carry
+        put back afterwards."""
+        init = tree_map(lambda x: x.detach().clone(), carry)
+        test = None if test_sets is None else \
+            self._grid_test_buffers(test_sets)
+        own = [self._solver_tmpl[k] for k in ovr]
+        if stores is not None:
+            own += self._store.leaves()
+        if self._static_carry is not None:
+            own += tree_leaves(self._static_carry)
+        kept = [(t, t.clone()) for t in own]
+        carries = rows = None
+        try:
+            for s in range(n_S):
+                self._swap_in(ovr, stores, test_sets, s)
+                c, r = self._scan_packed(init, xs, test)
+                if carries is None:
+                    carries = tree_map(
+                        lambda x: x.new_empty((n_S,) + tuple(x.shape)), c)
+                    rows = r.new_empty((n_S,) + tuple(r.shape))
+                for d, x in zip(tree_leaves(carries), tree_leaves(c)):
+                    d[s].copy_(x)
+                rows[s].copy_(r)
+        finally:
+            for t, saved in kept:
+                t.copy_(saved)
+        return carries, rows

@@ -17,8 +17,8 @@ class SolverArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in
                 ("K", "M", "n_bisect_b", "n_bisect_k")] + \
                [(n, ctypes.c_float) for n in
-                ("B_max", "bmax_hi", "bmax_lo", "p_tx", "N0", "n0ln2", "V",
-                 "er", "c")]
+                ("B_max", "bmax_hi", "bmax_lo", "p_tx", "N0", "n0ln2", "er",
+                 "c")]
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -26,9 +26,9 @@ LIBRARY = CudaLibrary(Path(__file__).resolve().parent / "csrc"
                       / "jcsba_solver.cu", {
     # gamma, h, tau_rem, bmin, ok, args, stream
     "jcsba_bmin": [_P] * 5 + [ctypes.POINTER(SolverArgs), _P],
-    # A, bmin, ok, Q, gamma, h, e_cmp, zeta2, delta2, wbar, has, D, J,
+    # A, bmin, ok, Q, gamma, h, e_cmp, zeta2, delta2, wbar, has, D, V, J,
     # feasible, B, P, threads, cpt, args, stream
-    "jcsba_population": [_P] * 15 + [_I] * 3
+    "jcsba_population": [_P] * 16 + [_I] * 3
                         + [ctypes.POINTER(SolverArgs), _P],
 }, flags=("-fmad=false",))
 build = LIBRARY.build

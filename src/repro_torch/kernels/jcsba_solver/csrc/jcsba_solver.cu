@@ -36,13 +36,15 @@
 #include <math.h>
 #include <stdint.h>
 
-// The round's scalars, rounded to float32 by the caller as the plain
+// The round's fixed scalars, rounded to float32 by the caller as the plain
 // version rounds them.  Must match build.py:SolverArgs field for field.
+// V is not among them: the population kernel reads it from device memory,
+// so a captured round replays under whatever V a scenario copies in.
 struct SolverArgs {
   int K, M, n_bisect_b, n_bisect_k;
   float B_max, bmax_hi, bmax_lo;   // B_max, B_max + TOL_B, B_max - TOL_B
   float p_tx, N0, n0ln2;           // n0ln2 = N0·ln 2
-  float V, er, c;                  // V, η·ρ, (2η − η²)/2
+  float er, c;                     // η·ρ, (2η − η²)/2
 };
 
 namespace {
@@ -144,8 +146,9 @@ __global__ void __launch_bounds__(1024) jcsba_population_kernel(
     const float* __restrict__ e_cmp, const float* __restrict__ zeta2,
     const float* __restrict__ delta2, const float* __restrict__ wbar,
     const uint8_t* __restrict__ has, const float* __restrict__ D,
-    float* __restrict__ J, uint8_t* __restrict__ feasible,
-    float* __restrict__ Bout, SolverArgs s) {
+    const float* __restrict__ V, float* __restrict__ J,
+    uint8_t* __restrict__ feasible, float* __restrict__ Bout,
+    SolverArgs s) {
   __shared__ float smem[32 * 4];
   const int K = s.K;
   const long row = blockIdx.x;
@@ -320,7 +323,7 @@ __global__ void __launch_bounds__(1024) jcsba_population_kernel(
   A2 = fmaxf(A2, 0.0f);
   if (threadIdx.x == 0) {
     const float bound = s.er * sqrtf(A1 + A2) - s.c * covered;
-    J[row] = s.V * bound + en[0];
+    J[row] = V[0] * bound + en[0];
     feasible[row] = 1;
   }
 }
@@ -341,12 +344,14 @@ int jcsba_bmin(const void* gamma, const void* h, const void* tau_rem,
 }
 
 // threads: a multiple of 32 up to 1024; cpt: clients a thread, 1, 2, 4 or
-// 8, with threads·cpt ≥ K (ops.py:plan); P rows, one block each.
+// 8, with threads·cpt ≥ K (ops.py:plan); P rows, one block each; V a
+// float32 scalar in device memory.
 int jcsba_population(const void* A, const void* bmin, const void* ok,
                      const void* Q, const void* gamma, const void* h,
                      const void* e_cmp, const void* zeta2,
                      const void* delta2, const void* wbar, const void* has,
-                     const void* D, void* J, void* feasible, void* B, int P,
+                     const void* D, const void* V, void* J,
+                     void* feasible, void* B, int P,
                      int threads, int cpt, const SolverArgs* args,
                      void* stream) {
   const int K = args->K;
@@ -360,8 +365,8 @@ int jcsba_population(const void* A, const void* bmin, const void* ok,
       (const uint8_t*)A, (const float*)bmin, (const uint8_t*)ok,            \
       (const float*)Q, (const float*)gamma, (const float*)h,                \
       (const float*)e_cmp, (const float*)zeta2, (const float*)delta2,       \
-      (const float*)wbar, (const uint8_t*)has, (const float*)D, (float*)J,  \
-      (uint8_t*)feasible, (float*)B, *args)
+      (const float*)wbar, (const uint8_t*)has, (const float*)D,             \
+      (const float*)V, (float*)J, (uint8_t*)feasible, (float*)B, *args)
   switch (cpt) {
     case 1: JCSBA_LAUNCH(1); break;
     case 2: JCSBA_LAUNCH(2); break;

@@ -10,7 +10,9 @@ wrapper counts its launches (``launch_counts()``).
 
 A solve builds its launches' scalars once (``launch_args``) and hands the
 same struct to each of its 23 launches; a wrapper called without one
-builds its own.
+builds its own.  V is not in the struct: the population kernel reads the
+0-d float32 tensor ``data["V"]`` on the card, so a captured solve follows
+whatever V is copied into that tensor before a replay.
 """
 from __future__ import annotations
 
@@ -54,9 +56,9 @@ def plan(K: int):
 
 
 def solver_args(K: int, M: int, hp: SolverHyper, B_max: float, p_tx: float,
-                N0: float, V: float = 0.0, eta: float = 0.0,
-                rho: float = 0.0):
-    """The C side's ``SolverArgs``: the round's scalars, each rounded to
+                N0: float, eta: float = 0.0, rho: float = 0.0):
+    """The C side's ``SolverArgs``: the round's fixed scalars (V is read
+    from the device, not from here), each rounded to
     float32 where the plain version rounds it (sums and products of two
     Python floats are taken in double first, as torch takes them).  The
     solver's fixed constants are ``constexpr`` on the C side.  The B_min
@@ -65,7 +67,7 @@ def solver_args(K: int, M: int, hp: SolverHyper, B_max: float, p_tx: float,
     return SolverArgs(
         K=K, M=M, n_bisect_b=hp.n_bisect_b, n_bisect_k=hp.n_bisect_k,
         B_max=B_max, bmax_hi=B_max + TOL_B, bmax_lo=B_max - TOL_B,
-        p_tx=p_tx, N0=N0, n0ln2=N0 * ref.LN2, V=V, er=eta * rho,
+        p_tx=p_tx, N0=N0, n0ln2=N0 * ref.LN2, er=eta * rho,
         c=(2 * eta - eta ** 2) / 2.0)
 
 
@@ -75,12 +77,15 @@ def launch_args(data: dict, hp: SolverHyper):
     if not data["Q"].is_cuda:
         return None
     return solver_args(data["Q"].shape[0], data["zeta2"].shape[0], hp,
-                       data["B_max"], data["p_tx"], data["N0"], data["V"],
-                       data["eta"], data["rho"])
+                       data["B_max"], data["p_tx"], data["N0"], data["eta"],
+                       data["rho"])
 
 
 def _f32(*ts):
     for t in ts:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"the CUDA kernel takes float32 tensors, got "
+                            f"{type(t).__name__}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"the CUDA kernel takes contiguous float32 "
                             f"operands, got {t.dtype} (contiguous: "
@@ -126,16 +131,17 @@ def _launch_population(A, bmin_, ok, data, hp: SolverHyper, want_B: bool,
         raise TypeError(f"A must be a contiguous bool [P, K], got {A.dtype}")
     vecs = [data[n] for n in ("Q", "gamma", "h", "e_cmp", "D")]
     snap = [data[n] for n in ("zeta2", "delta2", "wbar")]
-    _f32(bmin_, *vecs, *snap)
-    has = data["has"]
+    has, V = data["has"], data["V"]
+    _f32(bmin_, *vecs, *snap, V)
     M = snap[0].shape[0]
     if (any(v.shape != (K,) for v in (bmin_, ok, *vecs))
             or any(t.shape != (M, K) for t in (snap[1], snap[2], has))
-            or has.dtype != torch.bool or ok.dtype != torch.bool
-            or A.device != bmin_.device):
+            or V.shape != () or has.dtype != torch.bool
+            or ok.dtype != torch.bool or A.device != bmin_.device):
         raise ValueError(f"A [P, K] = {tuple(A.shape)}: expected bmin, ok, "
-                         f"Q, gamma, h, e_cmp, D [K] and delta2, wbar, has "
-                         f"[M, K] on one device (ok and has bool)")
+                         f"Q, gamma, h, e_cmp, D [K], delta2, wbar, has "
+                         f"[M, K] and a 0-d V on one device (ok and has "
+                         f"bool)")
     if P > MAX_ROWS:
         raise ValueError(f"{P} rows: one launch takes up to {MAX_ROWS}")
     threads, cpt = plan(K)
@@ -147,7 +153,7 @@ def _launch_population(A, bmin_, ok, data, hp: SolverHyper, want_B: bool,
         return J, B, feas
     if args is None:
         args = solver_args(K, M, hp, data["B_max"], data["p_tx"],
-                           data["N0"], data["V"], data["eta"], data["rho"])
+                           data["N0"], data["eta"], data["rho"])
     elif (args.K, args.M) != (K, M):
         raise ValueError(f"args for K={args.K}, M={args.M}, got K={K}, "
                          f"M={M}")
@@ -156,7 +162,7 @@ def _launch_population(A, bmin_, ok, data, hp: SolverHyper, want_B: bool,
             A.data_ptr(), bmin_.data_ptr(), ok.data_ptr(),
             *(v.data_ptr() for v in vecs[:4]),
             *(t.data_ptr() for t in snap), has.data_ptr(),
-            vecs[4].data_ptr(), J.data_ptr(), feas.data_ptr(),
+            vecs[4].data_ptr(), V.data_ptr(), J.data_ptr(), feas.data_ptr(),
             B.data_ptr() if want_B else None, P, threads, cpt, args,
             _stream(A.device))
     check(rc, "jcsba_population_kernel")

@@ -9,8 +9,8 @@ line-by-line port of the JAX package's ``wireless/solver/jaxsolver.py``:
 The CPU path runs these; on a card ``ops.py`` launches the CUDA kernels,
 which ``chip_smoke.py`` and the ``gpu`` tests hold against these on the same
 inputs.  ``data`` is the dict of ``wireless.solver.torchsolver.to_device``:
-float32 tensors for the per-client and snapshot arrays (``has`` bool),
-Python floats (rounded to float32) for the scalars.
+float32 tensors for the per-client and snapshot arrays (``has`` bool) and
+for V (0-d), Python floats (rounded to float32) for the fixed scalars.
 """
 from __future__ import annotations
 

@@ -38,6 +38,27 @@ def client_costs(data_sizes: Sequence[int],
     return ClientCost(gam, tcmp, ecmp)
 
 
+def population_costs(has_modality, modalities: Sequence[str],
+                     sizes: np.ndarray, profile,
+                     params: WirelessParams) -> ClientCost:
+    """Vectorized Eqs. 15-18 over ownership masks — ``client_costs`` without
+    the per-client Python loop, for O(10⁴–10⁶) populations.
+
+    ``has_modality[m]`` is a bool [K] ownership mask (a ``ClientStore``
+    field), ``sizes`` the per-client sample counts D_k."""
+    has = {m: np.asarray(has_modality[m], bool) for m in modalities}
+    # Γ_k = Σ_{m∈M_k} l_m (Eq. 15);  Φ_k = Σ_{m∈M_k}(β_m + β₀) − β₀ (Eq. 17)
+    gam = sum(np.where(has[m], profile[m][0], 0.0) for m in modalities)
+    owned = sum(has[m].astype(np.int64) for m in modalities)
+    phi = (sum(np.where(has[m], profile[m][1] + params.beta0, 0.0)
+               for m in modalities)
+           - params.beta0 * (owned > 0))
+    D = np.asarray(sizes, np.float64)
+    tau_cmp = D * phi / params.f_cpu                                # Eq. 17
+    e_cmp = params.alpha * D * params.f_cpu ** 2 * phi              # Eq. 18
+    return ClientCost(np.asarray(gam, np.float64), tau_cmp, e_cmp)
+
+
 def com_latency(B: np.ndarray, h: np.ndarray, gamma_bits: np.ndarray,
                 params: WirelessParams) -> np.ndarray:
     """τ_k^com = Γ_k / r_k (Eq. 15)."""

@@ -33,13 +33,16 @@ __all__ = ["to_device", "rate", "make_draws", "solve_core", "read_back",
            "solve_round"]
 
 _BOOL_KEYS = ("has", "bmin_ok")
-_SCALAR_KEYS = ("B_max", "p_tx", "N0", "V", "eta", "rho")
+_SCALAR_KEYS = ("B_max", "p_tx", "N0", "eta", "rho")
 
 
 def to_device(data: dict, device) -> dict:
     """numpy solver-data dict (``common.build_solver_data``) → float32
-    tensors on ``device`` (``has`` bool) in one host-to-device copy; the
-    scalars stay Python floats, rounded to float32."""
+    tensors on ``device`` (``has`` bool) in one host-to-device copy.  The
+    fixed scalars (B_max, p_tx, N0, η, ρ) stay Python floats, rounded to
+    float32; V becomes a 0-d float32 tensor, which the population kernel
+    reads on the device, so a scenario grid can swap it under a captured
+    round."""
     arrays = {k: np.asarray(v) for k, v in data.items()
               if k not in _SCALAR_KEYS}
     flat = np.concatenate([a.astype(np.float32).ravel()

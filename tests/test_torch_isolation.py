@@ -40,6 +40,15 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+# the scenario library's functions import lazily: run them too
+from repro_torch.data.scenarios import ScenarioSpec, stack_scenarios
+from repro_torch.wireless.params import WirelessParams
+assert "repro_torch.data.scenarios" in names
+grid = stack_scenarios([ScenarioSpec(K=4, n_per_client=2, n_test=4, seed=s,
+                                     split=sp)
+                        for s, sp in enumerate(("iid", "natural"))],
+                       WirelessParams(K=4))
+assert grid.store_row(1).K == 4 and grid.overrides["V"].shape == (2,)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(len(names), bad)
@@ -592,6 +601,98 @@ def test_solve_on_card_matches_plain_solve(cuda):
     assert torch.equal(a, a_w)
     torch.testing.assert_close(J, J_w, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(B, B_w, rtol=1e-3, atol=2.0)
+
+
+@pytest.mark.gpu
+def test_population_kernel_reads_v_from_the_device_in_a_graph(cuda):
+    """One captured population launch replayed at two V copied into the
+    0-d V tensor it read at capture, each against the plain version at
+    that V (queues > 0: the κ/φ⁻¹ bisections), at the J tolerance."""
+    from repro_torch.wireless.solver import SolverHyper, torchsolver
+    hp = SolverHyper()
+    d = torchsolver.to_device(synthetic_round(10, 3), "cuda")
+    A = torch.as_tensor(antibody_rows(10, 20, 7), device="cuda")
+    bm, ok = solver_ref.bmin(d["gamma"], d["h"], d["tau_rem"], d["B_max"],
+                             d["p_tx"], d["N0"], hp)
+    solver_ops.population_objective(A, bm, ok, d, hp)     # build, load
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        J, _, feas = solver_ops.population_objective(A, bm, ok, d, hp)
+    seen = []
+    for V in (0.5, 40.0):
+        d["V"].fill_(V)
+        g.replay()
+        J_w, _, feas_w = solver_ref.population_objective(A, bm, ok, d, hp)
+        torch.cuda.synchronize()
+        assert torch.equal(feas, feas_w)
+        fin = torch.isfinite(J_w)
+        assert fin.any()
+        torch.testing.assert_close(J[fin], J_w[fin], rtol=1e-4, atol=1e-6)
+        seen.append(J[fin].clone())
+    assert not torch.equal(seen[0], seen[1])
+
+
+def _grid_card(rows=2, rounds=3, device="cuda"):
+    """A from_store engine on a ``rows``-row iemocap grid (K=6) and its
+    xs, on the card."""
+    from repro_torch.data.scenarios import ScenarioSpec, stack_scenarios
+    from repro_torch.fl.client import make_adapter
+    from repro_torch.fl.fused_round import (FusedRoundEngine,
+                                            draw_population_xs)
+    from repro_torch.wireless.channel import Channel
+    from repro_torch.wireless.params import WirelessParams
+    from repro_torch.wireless.policies import JCSBAPolicy
+    from repro_torch.wireless.solver import SolverHyper
+    params = WirelessParams(K=6, B_max=6e6, E_add=2e-4)
+    specs = [ScenarioSpec(dataset="iemocap", K=6, n_per_client=8,
+                          n_test=16, omega=w, V=V, seed=i, split=sp)
+             for i, (sp, w, V) in enumerate((("iid", 0.0, 1e-6),
+                                             ("dirichlet", 0.3, 1.0),
+                                             ("natural", 0.5, 10.0))[:rows])]
+    grid = stack_scenarios(specs, params)
+    pol = JCSBAPolicy(6, SolverHyper(S=8, G=3), max_cohort=3)
+    eng = FusedRoundEngine.from_store(grid.store_row(0), params, pol,
+                                      make_adapter("iemocap", dropout=0.0),
+                                      device=device)
+    rng = np.random.default_rng(1)
+    xs = draw_population_xs(Channel(params, rng), rng, 6, rounds,
+                            eval_every=2, include_final=True, policy=pol,
+                            device=device)
+    kw = dict(stores=grid.stores,
+              test_sets=(grid.test_features, grid.test_labels))
+    return grid, eng, xs, kw
+
+
+@pytest.mark.gpu
+def test_scenario_grid_replays_equal_the_eager_body(cuda):
+    """A 2-row grid on the card (one captured round replayed row by row)
+    against each row's experiment run eagerly with the scenario passed as
+    arguments: participants identical, params and metrics within 1e-6;
+    two captures for the grid, and the engine's own step unchanged."""
+    from repro_torch.fl.fused_round import tree_row
+    grid, eng, xs, kw = _grid_card()
+    x0 = tree_row(xs, 0)
+    c0, a0 = eng.step_eager(eng.fresh_carry(), x0)
+    carries, auxs = eng.scan_scenario_grid(grid.overrides,
+                                           eng.fresh_carry(), xs, **kw)
+    assert eng.capture_count == 2 and set(eng.replays) == {"grid", False}
+    assert sum(eng.replays.values()) == 2 * 3
+    for s in range(2):
+        ovr, store, test = eng._grid_row(grid.overrides, s, **kw)
+        c, a = eng._scan_one_scenario(ovr, store, test, eng.fresh_carry(),
+                                      xs)
+        assert torch.equal(a.ok, auxs.ok[s]) and torch.equal(a.a, auxs.a[s])
+        for k in a.metrics:
+            torch.testing.assert_close(a.metrics[k], auxs.metrics[k][s],
+                                       rtol=1e-6, atol=1e-6, equal_nan=True)
+        for x, y in zip(tree_leaves(c.params), tree_leaves(carries.params)):
+            torch.testing.assert_close(x, y[s], rtol=1e-6, atol=1e-6)
+    c1, a1 = eng.step_eager(eng.fresh_carry(), x0)
+    for x, y in zip(tree_leaves(c0) + tree_leaves(a0),
+                    tree_leaves(c1) + tree_leaves(a1)):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6,
+                                   equal_nan=True)
 
 
 def _fused_card(arch="lstm-cnn", **kw):

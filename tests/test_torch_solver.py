@@ -309,14 +309,17 @@ def test_solver_args_match_the_c_side():
 
 def test_launch_args_only_on_a_card():
     """A CPU solve builds no launch struct; one built for a round carries
-    its K, M and scalars."""
+    its K, M and fixed scalars, and not V, which the population kernel
+    reads from the 0-d float32 tensor ``to_device`` makes of it."""
     d = torchsolver.to_device(_data(K=6, seed=1), "cpu")
     assert ops.launch_args(d, HP) is None
     args = ops.solver_args(6, d["zeta2"].shape[0], HP, d["B_max"],
-                           d["p_tx"], d["N0"], d["V"], d["eta"], d["rho"])
+                           d["p_tx"], d["N0"], d["eta"], d["rho"])
     assert (args.K, args.M, args.n_bisect_b, args.n_bisect_k) == (
         6, d["zeta2"].shape[0], HP.n_bisect_b, HP.n_bisect_k)
     assert args.bmax_hi == np.float32(d["B_max"] + 1.0)
+    assert not hasattr(args, "V")
+    assert d["V"].shape == () and d["V"].dtype == torch.float32
 
 
 def test_card_check_inputs():
