@@ -62,6 +62,22 @@ Phases, each of which fails the run when it fails:
    round from a profiled run; 2-row grids on the transformer and SSD
    backbones (2 rounds); the population kernel reading V from the device,
    one captured launch replayed at two V against the plain version;
+3d. ``[serve]``: ``launch.serve.serve`` at full width from a random init
+   — qwen3-0.6b (B=8, prompt 512, 64 generated tokens, bf16),
+   mamba2-370m (B=4, 512 in two 256-token chunks, 32) and whisper-base
+   (B=4, 64 source frames, prompt 16, 16) — each with the counters set to
+   0 just before it (its bulk prefill must launch the attention or SSD
+   kernel once a layer): prefill ms, decode ms a step over the graph
+   replays (median, p99), tokens/s, peak memory, captures; reduced f32
+   qwen3 and mamba2 on the card against the CPU (tokens identical, logits
+   and caches within 1e-4); at full width the kernel prefill against the
+   plain one and both against float32, the decode graph against the eager
+   step, a profiled decode step and prefill, and the teacher-forced A/B at
+   a 128-token prompt; the kernels against their plain versions at the
+   operands the prefills recorded and at gemma3-12b's local-layer shape
+   (timed in phase 4); ``[continuous]``: full-width qwen3-0.6b beside
+   IEMOCAP fused rounds (3 rounds of 16 decode steps), no capture after
+   warm-up, and a hot swap against a fresh server (tokens identical);
 3b. ``[solver]``: the two JCSBA solver kernels against their plain versions
    on the round data the paper CREMA-D run gave the solver (K=10, captured)
    and at K = 100 and 1000, rows of 1-5 clients, P = 1, 20, 24; one whole
@@ -210,6 +226,27 @@ SSD_SWEEP = ((1, 2, 64, 2, 32, 16), (2, 4, 32, 4, 16, 8),
              (1, 1, 128, 8, 64, 32),
              # the JAX configs' 256-token chunk: mamba2-370m and jamba
              (1, 1, 256, 2, 64, 128), (1, 1, 256, 2, 64, 16))
+
+
+#: the serving path: full-width LMs from a random init on the card,
+#: (arch, batch, prompt, generated tokens), and the kernel each one's bulk
+#: prefill launches once a mixer layer
+SERVE_RUNS = (("qwen3-0.6b", 8, 512, 64), ("mamba2-370m", 4, 512, 32),
+              ("whisper-base", 4, 16, 16))
+SERVE_KERNEL = {"qwen3-0.6b": "flash_attention_fwd",
+                "mamba2-370m": "ssd_chunk_fwd",
+                "whisper-base": "flash_attention_fwd"}
+#: the teacher-forced A/B's prompt, the decode steps the graph is held to
+#: the eager step over, and the reduced card-vs-CPU twins' batch and prompt
+TF_PROMPT, GRAPH_STEPS, TWIN_B, TWIN_S = 128, 8, 2, 64
+#: gemma3-12b's local layer (B, S, H, KH, hd, window), bfloat16: hd 256
+#: takes the generic regime, with a window
+GEMMA_LOCAL = (2, 2048, 16, 8, 256, 1024)
+#: continuous serving: JAX's launch.continuous main() (IEMOCAP fused rounds,
+#: K=6, n_samples=120, JCSBA, 4 requests, 32-token prompts) with the LM at
+#: full width
+CONT_KW = dict(rounds=3, steps_per_round=16)
+CONT_B, CONT_PROMPT = 4, 32
 
 
 def gpu_line() -> str:
@@ -1544,6 +1581,379 @@ def grid_kernel_phase(torch, ops, ref, found):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: serving — the LM decode stack at full width
+# ---------------------------------------------------------------------------
+def _serve_args(arch, B, prompt, gen, *extra):
+    from repro_torch.launch import serve
+    return serve.build_parser().parse_args(
+        ["--arch", arch, "--batch", str(B), "--prompt-len", str(prompt),
+         "--gen-len", str(gen), "--device", DEVICE, *extra])
+
+
+def profile_fn(torch, fn, label, top=6):
+    """One call of ``fn`` under ``torch.profiler``: wall, device busy
+    (idle) and device ops, and the kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == cuda]
+    if not events:
+        print(f"[profile] {label}: the trace shows no device events: device "
+              f"busy share not measured")
+        return None
+    busy = sum(_device_us(e) for e in events) / 1e3
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle {1 - busy / wall_ms:.2%}), "
+          f"{sum(e.count for e in events)} device ops")
+    for e in sorted(events, key=_device_us, reverse=True)[:top]:
+        print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}")
+    return busy
+
+
+def serve_phase(torch, counters, found):
+    """``launch.serve.serve`` at full width for each of ``SERVE_RUNS``: a
+    short warm-up call (which records the kernels' operands into
+    ``found``), then the measured call with the counters set to 0 just
+    before it and read after; the bulk prefill must launch its kernel
+    once a mixer layer.  Returns the launches."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve
+    reset, read = counters
+    total = {}
+    for arch, B, prompt, gen in SERVE_RUNS:
+        t0 = time.perf_counter()
+        caps = [Capture(torch, fa_ops, "flash_attention", f"serve {arch}"),
+                Capture(torch, ssd_ops, "ssd_chunk", f"serve {arch}")]
+        with caps[0], caps[1]:
+            serve.serve(_serve_args(arch, B, prompt, 2))
+        for key, cap in zip(("attn", "ssd_chunk"), caps):
+            for shape, rec in cap.seen.items():
+                found.setdefault(key, {}).setdefault(shape, rec)
+        torch.cuda.empty_cache()
+        stats = {}
+        reset()
+        out = serve.serve(_serve_args(arch, B, prompt, gen), stats)
+        now = read()
+        cfg = stats["cfg"]
+        # every layer (whisper: every decoder layer) has the mixer whose
+        # kernel the prefill launches
+        n_mix = cfg.n_layers
+        kern = SERVE_KERNEL[arch]
+        ok = (tuple(out.shape) == (B, gen) and int(out.min()) >= 0
+              and int(out.max()) < cfg.vocab_size)
+        print(f"[serve] {arch}: B={B} prompt={prompt} generated={gen} "
+              f"({cfg.dtype}, {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}): "
+              f"bulk prefill {stats['prefill_ms']:.3f} ms; decode "
+              f"{stats['decode_p50_ms']:.4f} ms/step median, "
+              f"{stats['decode_p99_ms']:.4f} p99 over "
+              f"{len(stats['decode_ms'])} graph replays; "
+              f"{stats['tok_s']:.1f} tok/s as the [serve] line counts, "
+              f"{stats['decode_tok_s']:.1f} decode-only; peak "
+              f"{stats['peak_bytes'] / 2 ** 30:.3f} GiB; captures "
+              f"{stats['captures']}; launches {({k: v for k, v in now.items() if v})}; "
+              f"{time.perf_counter() - t0:.3f} s")
+        if not ok or now[kern] != n_mix or stats["captures"] != 1:
+            raise AssertionError(f"serve {arch}: tokens {tuple(out.shape)}, "
+                                 f"{kern} launched {now[kern]} times for "
+                                 f"{n_mix} mixer layers, "
+                                 f"{stats['captures']} captures")
+        for k, v in now.items():
+            total[k] = total.get(k, 0) + v
+        del out
+        torch.cuda.empty_cache()
+    return total
+
+
+def _rel(a, b):
+    """max|a - b| over max(1, max|b|), in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def _rel_max(a, b):
+    """max|a - b| over max|b|: the error relative to the largest value."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def serve_twin_phase(torch):
+    """Reduced f32 qwen3-0.6b and mamba2-370m on the card (kernels,
+    graph decode) against the CPU (plain versions) on the same params and
+    prompts: next tokens identical, logits and every cache leaf within
+    1e-4 of max(1, the CPU's largest magnitude), over the bulk prefill and
+    ``GRAPH_STEPS`` decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.trees import tree_leaves, tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    for arch in ("qwen3-0.6b", "mamba2-370m"):
+        cfg = get_config(arch).reduced()
+        params = steps.init_fn(cfg)(torch.Generator().manual_seed(0))
+        tokens = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (TWIN_B, TWIN_S)))
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            p = tree_map(lambda t: t.to(dev), params)
+            cache = T.init_cache(cfg, TWIN_B, TWIN_S + GRAPH_STEPS,
+                                 torch.float32, dev)
+            logits, cache = T.prefill_with_cache(p, tokens.to(dev), cache,
+                                                 cfg)
+            lgs, toks = [logits], [logits.argmax(-1)]
+            for i in range(GRAPH_STEPS):
+                lg, cache = T.decode_step(p, cache, toks[-1][:, None],
+                                          TWIN_S + i, cfg)
+                lgs.append(lg[:, 0])
+                toks.append(lg[:, 0].argmax(-1))
+            runs[dev] = ([t.cpu() for t in lgs], [t.cpu() for t in toks],
+                         [t.cpu() for t in tree_leaves(cache)])
+        (lg_g, tk_g, c_g), (lg_c, tk_c, c_c) = runs[DEVICE], runs["cpu"]
+        same = all(torch.equal(a, b) for a, b in zip(tk_g, tk_c))
+        l_err = max(_rel(a, b) for a, b in zip(lg_g, lg_c))
+        c_err = max(_rel(a, b) for a, b in zip(c_g, c_c))
+        print(f"[serve] {arch} reduced f32 card (kernels) vs cpu (plain): "
+              f"prefill + {GRAPH_STEPS} decode steps, tokens "
+              f"{'identical' if same else 'DIFFER'}, logits rel err "
+              f"{l_err:.3e}, caches rel err {c_err:.3e} (tol 1e-4)")
+        if not same or l_err > 1e-4 or c_err > 1e-4:
+            raise AssertionError(f"{arch}: card and cpu serving disagree")
+
+
+def serve_checks_phase(torch):
+    """At full width, bf16, on the card: the kernel prefill
+    (``impl="pallas"``) against the plain prefill (``"xla"``) and both
+    against a float32 copy of the same params (the plain path), the last
+    position's logits and the caches relative to their largest value;
+    the decode graph's replays against the eager step (tokens identical);
+    and the teacher-forced A/B at a ``TF_PROMPT``-token prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.trees import tree_leaves, tree_map
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import Decoder
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch, B, prompt, gen in SERVE_RUNS[:2]:
+        cfg = get_config(arch)
+        params = steps.init_fn(cfg)(torch.Generator(DEVICE).manual_seed(0))
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, 1000, (B, prompt)), device=DEVICE)
+        res = {}
+        for impl, p in (("pallas", params), ("xla", params),
+                        ("f32", tree_map(lambda t: t.float(), params))):
+            cache = T.init_cache(cfg, B, prompt + GRAPH_STEPS + 1,
+                                 torch.float32 if impl == "f32" else None)
+            logits, cache = T.prefill_with_cache(
+                p, tokens, cache, cfg, attn_chunk=64,
+                impl="xla" if impl == "f32" else impl)
+            res[impl] = (logits, cache)
+            del p
+        kl, kc = res["pallas"]
+        e = {"kernel vs plain": (_rel_max(kl, res["xla"][0]), max(
+                _rel_max(a, b) for a, b in zip(tree_leaves(kc),
+                                               tree_leaves(res["xla"][1]))))}
+        for name in ("pallas", "xla"):
+            e[f"{'kernel' if name == 'pallas' else 'plain'} vs f32"] = (
+                _rel_max(res[name][0], res["f32"][0]), max(
+                    _rel_max(a, b) for a, b in zip(
+                        tree_leaves(res[name][1]),
+                        tree_leaves(res["f32"][1]))))
+        agree = int((kl.argmax(-1) == res["xla"][0].argmax(-1)).sum())
+        print(f"[serve] {arch} full width bf16 prefill, B={B} S={prompt}: "
+              + "; ".join(f"{k} logits {v[0]:.3e}, caches {v[1]:.3e}"
+                          for k, v in e.items())
+              + f" (relative to the largest value; expected within 2e-2); "
+                f"next tokens agree {agree}/{B}")
+        if e["kernel vs f32"][0] > 2 * e["plain vs f32"][0] + 1e-3:
+            raise AssertionError(f"{arch}: the kernel prefill is further "
+                                 f"from float32 than twice the plain one")
+        del res
+        # decode: graph replays against the eager step from the same state
+        decs = []
+        for _ in range(2):
+            cache = T.init_cache(cfg, B, prompt + GRAPH_STEPS + 1)
+            nxt, cache = steps.make_bulk_prefill(cfg)(params, tokens, cache)
+            d = Decoder(cfg, params, cache, B, DEVICE)
+            d.set(nxt, prompt)
+            decs.append(d)
+        g, eg = decs
+        same = all(torch.equal(g.step(), eg.eager_step())
+                   for _ in range(GRAPH_STEPS))
+        print(f"[serve] {arch} decode: {GRAPH_STEPS} steps, graph replays "
+              f"vs the eager step: tokens {'identical' if same else 'DIFFER'}"
+              f"; captures {g.graph.captures}, replays {g.graph.replays}")
+        if not same or g.graph.captures != 1:
+            raise AssertionError(f"{arch}: decode graph replays differ from "
+                                 f"the eager step")
+        profile_fn(torch, g.step, f"serve {arch} one decode step (graph "
+                                  f"replay)")
+        cache = T.init_cache(cfg, B, prompt + GRAPH_STEPS + 1)
+        profile_fn(torch, lambda: T.prefill_with_cache(params, tokens, cache,
+                                                       cfg, attn_chunk=64),
+                   f"serve {arch} bulk prefill B={B} S={prompt}")
+        del decs, g, eg, cache
+        if arch == "qwen3-0.6b":
+            out["tf"] = teacher_forced_ab(torch, cfg, params, tokens)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def teacher_forced_ab(torch, cfg, params, tokens):
+    """Bulk prefill against teacher-forced decode at a ``TF_PROMPT``-token
+    prompt on the same params, both warm (the bulk pass run once before,
+    the decode graph captured before): host clock ending in
+    ``synchronize()``."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import Decoder, teacher_forced_prefill
+    from repro_torch.models import transformer as T
+    B, S = tokens.shape[0], TF_PROMPT
+    tok = tokens[:, :S]
+    cache = T.init_cache(cfg, B, S + 1)
+    bulk = steps.make_bulk_prefill(cfg)
+    bulk(params, tok, cache)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nb, _ = bulk(params, tok, cache)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dec = Decoder(cfg, params, T.init_cache(cfg, B, S + 1), B, DEVICE)
+    teacher_forced_prefill(dec.serve_step, params, dec.cache,
+                           tok[:, :2])      # warm-up and capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    teacher_forced_prefill(dec.serve_step, params, dec.cache, tok)
+    torch.cuda.synchronize()
+    tf_ms = (time.perf_counter() - t0) * 1e3
+    bulk_ms = float(np.median(times))
+    same = torch.equal(dec.token, nb)
+    print(f"[serve] qwen3-0.6b teacher-forced A/B at prompt {S}, B={B}: "
+          f"bulk {bulk_ms:.3f} ms (median of 3), teacher-forced "
+          f"{tf_ms:.3f} ms ({S} graph replays), bulk "
+          f"{tf_ms / bulk_ms:.2f}x faster; next tokens "
+          f"{'identical' if same else 'differ (bf16 orders)'}")
+    return dict(bulk_ms=bulk_ms, tf_ms=tf_ms)
+
+
+def gemma_local_case(torch):
+    """Random bfloat16 operands at gemma3-12b's local-layer shape."""
+    B, S, H, KH, hd, win = GEMMA_LOCAL
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    q, k, v = (torch.randn(s, device=DEVICE, generator=g).to(torch.bfloat16)
+               for s in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)))
+    return attn_case(torch, q, k, v, win, "gemma3-12b local (random)")
+
+
+def serving_kernel_phase(torch, found):
+    """Both backbone kernels against their plain versions (float32 and
+    float64) at the operands the serving prefills handed them, and
+    attention at gemma3-12b's local-layer shape.  Returns the cases and
+    the max abs error per kernel against the float32 plain version."""
+    attn = [attn_case(torch, *rec["args"], rec["kw"].get("window"),
+                      rec["label"]) for rec in found.get("attn", {}).values()]
+    attn.append(gemma_local_case(torch))
+    ssd = [ssd_case(*rec["args"], rec["label"])
+           for rec in found.get("ssd_chunk", {}).values()]
+    if len(attn) < 3 or not ssd:
+        raise AssertionError("serving: kernel operands not recorded")
+    errs = {"flash_attention_fwd": [], "ssd_chunk_fwd": []}
+    backbone_checks(torch, attn, ssd, {"attn": {}, "ssd_forward": {}}, errs)
+    # bfloat16 attention records no float32 error (``backbone_checks``)
+    return attn, ssd, {k: max(v) for k, v in errs.items() if v}
+
+
+def continuous_phase(torch, counters):
+    """Full-width qwen3-0.6b served beside IEMOCAP fused rounds
+    (``run_continuous``), the counters set to 0 just before and read
+    after; then a hot swap against a fresh server restored to the same
+    state.  Returns the launches (the wrappers' own and the fused rounds'
+    captured launches times replays)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.trees import tree_map
+    from repro_torch.fl.runtime import MFLExperiment
+    from repro_torch.launch import steps
+    from repro_torch.launch.continuous import ContinuousServer, run_continuous
+    reset, read = counters
+    t_start = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    exp = MFLExperiment(dataset="iemocap", scheduler="jcsba", K=6,
+                        n_samples=120, seed=0, eval_every=10 ** 9,
+                        engine="fused:pallas")
+    feats = {m: x[:CONT_B] for m, x in sorted(exp.test_ds.features.items())}
+    lm = steps.init_fn(cfg)(torch.Generator(DEVICE).manual_seed(0))
+    max_len = CONT_PROMPT + CONT_KW["rounds"] * CONT_KW["steps_per_round"] + 8
+    srv = ContinuousServer(cfg, lm, exp.global_params, feats,
+                           max_len=max_len)
+    ptrs = {dt: b.data_ptr() for dt, b in srv.bufs.items()}
+    prompts = np.random.default_rng(0).integers(0, 1000,
+                                                (CONT_B, CONT_PROMPT))
+    reset()
+    rep = run_continuous(exp, srv, prompts, **CONT_KW)
+    now = read()
+    eng = exp._fused_engine
+    counts = {k: now.get(k, 0) + graph_counts(eng).get(k, 0) for k in now}
+    st = np.array(rep["steady_latencies_s"]) * 1e3
+    ps = np.array(rep["post_swap_latencies_s"]) * 1e3
+    sw = np.array(rep["swap_walls_s"]) * 1e3
+    print(f"[continuous] qwen3-0.6b full width (bf16) beside IEMOCAP fused "
+          f"rounds (K=6, n=120, JCSBA), B={CONT_B}, prompt {CONT_PROMPT}, "
+          f"{CONT_KW['rounds']} rounds x {CONT_KW['steps_per_round']} steps: "
+          f"steady p50 {np.percentile(st, 50):.4f} p99 "
+          f"{np.percentile(st, 99):.4f} ms; post-swap p50 "
+          f"{np.percentile(ps, 50):.4f} p99 {np.percentile(ps, 99):.4f} ms; "
+          f"{rep['tokens_per_s']:.1f} tok/s; swap "
+          + ", ".join(f"{x:.3f}" for x in sw) + f" ms, {rep['swap_bytes']} "
+          f"bytes written of {srv.spec.nbytes()}; rounds "
+          + ", ".join(f"{x * 1e3:.3f}" for x in rep["round_walls_s"])
+          + f" ms; captures {rep['compile_counts']}, recompiles "
+          f"{rep['recompiles']}; launches {({k: v for k, v in counts.items() if v})}")
+    if sum(rep["recompiles"].values()) or \
+            rep["compile_counts"] != {"decode_captures": 1}:
+        raise AssertionError(f"continuous: captures {rep['compile_counts']},"
+                             f" recompiles {rep['recompiles']}")
+    if {dt: b.data_ptr() for dt, b in srv.bufs.items()} != ptrs:
+        raise AssertionError("continuous: a swap moved the flat buffers")
+    if not counts["flash_attention_fwd"] or not counts["fusion_loss_fwd"] \
+            or not counts["jcsba_population_kernel"]:
+        raise AssertionError(f"continuous: a kernel was not launched "
+                             f"{counts}")
+    # the hot swap against a fresh server with the new params, restored to
+    # the same state (tests/test_decode_consistency.py's contract)
+    state = srv.state()
+    exp.run_scanned(1)
+    new = tree_map(torch.clone, eng.round_params(exp._carry))
+    srv.swap(new)
+    fresh = ContinuousServer(cfg, lm, new, feats, max_len=max_len)
+    fresh.load_state(state)
+    same = True
+    for _ in range(GRAPH_STEPS):
+        srv.decode_step()
+        fresh.decode_step()
+        same &= torch.equal(srv.token, fresh.token)
+    print(f"[continuous] hot swap vs a fresh server with the new params at "
+          f"the same state: {GRAPH_STEPS} steps, tokens "
+          f"{'identical' if same else 'DIFFER'}; captures "
+          f"{srv.compile_counts()} (swapped), {fresh.compile_counts()} "
+          f"(fresh); {time.perf_counter() - t_start:.3f} s")
+    if not same or srv.compile_counts() != {"decode_captures": 1}:
+        raise AssertionError("continuous: the hot swap differs from a fresh "
+                             "server")
+    del srv, fresh, lm
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the JCSBA solver kernels against their plain versions
 # ---------------------------------------------------------------------------
 class record_launches:
@@ -1942,9 +2352,9 @@ def ssd_work(c):
 
 def backbone_timing_phase(torch, attn, ssd):
     """Times of the two backbone kernels at every case; the library call
-    for attention is ``F.scaled_dot_product_attention(..., is_causal=True)``
-    at the shapes without a window (timing only; the port never calls
-    it)."""
+    for attention is ``F.scaled_dot_product_attention(..., enable_gqa=
+    True)`` on the same q/k/v, causal, or with the window's band as a
+    boolean mask (timing only; the port never calls it)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -1954,18 +2364,24 @@ def backbone_timing_phase(torch, attn, ssd):
     for c in attn:
         q, k, v, win = c["q"], c["k"], c["v"], c["window"]
         tq, tk, tv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = None
         if win is None:
-            R = q.shape[2] // k.shape[2]
-            ek, ev = (t.repeat_interleave(R, dim=1) for t in (tk, tv))
             lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
-                tq, ek, ev, is_causal=True)
+                tq, tk, tv, is_causal=True, enable_gqa=True)
+            lib_txt = ("F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)")
+        else:
+            pos = torch.arange(q.shape[1], device=q.device)
+            band = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - win)
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                tq, tk, tv, attn_mask=band, enable_gqa=True)
+            lib_txt = ("F.scaled_dot_product_attention(attn_mask=the "
+                       "causal window band, enable_gqa=True)")
         rows["flash_attention_fwd"].append(time_row(
             torch, "flash_attention_fwd", c["label"], c["shape"],
             lambda: fa_ops._launch(q, k, v, win),
             lambda: fa_ref.attention_ref(tq, tk, tv, window=win), lib,
-            "F.scaled_dot_product_attention(is_causal=True)" if lib else
-            "none: SDPA takes no sliding window",
+            lib_txt,
             attn_work(c), c["regime"],
             PEAK_F32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS))
     for c in ssd:
@@ -2095,6 +2511,22 @@ def main() -> int:
     attn += g_attn
     ssd += g_ssd
     v_err = grid_v_graph_phase(torch)
+
+    # phase 5: serving — each full-width serve run with the counters set
+    # to 0 just before it; the card against the CPU, the kernel prefill
+    # against the plain one, the decode graph against the eager step;
+    # the kernels at the serving shapes (timed beside the others); the
+    # continuous server beside fused rounds
+    serve_found = {}
+    by_path["serve"] = serve_phase(torch, counters, serve_found)
+    serve_twin_phase(torch)
+    serve_checks_phase(torch)
+    s_attn, s_ssd, s_err = serving_kernel_phase(torch, serve_found)
+    for k, v in s_err.items():
+        max_err[k] = max(max_err[k], v)
+    attn += s_attn
+    ssd += s_ssd
+    by_path["continuous"] = continuous_phase(torch, counters)
 
     # phase 3b: the solver kernels at the main path's captured round
     solver_rows_, hp, solver_err = solver_phase(torch, capture.seen)

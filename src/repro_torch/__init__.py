@@ -13,6 +13,12 @@ are hand-written CUDA for Hopper (``kernels/``): the fusion loss, flash
 attention, the SSD chunk scan, and the JCSBA solver's population objective
 and B_min.
 
+It also serves what it trains (``launch/``): the JAX package's model
+configs (``configs/``), the LM and Whisper decode stacks with bulk prefill
+through the attention and SSD kernels and a decode step captured as one
+CUDA graph, flat parameter buffers with an in-place hot swap, and
+continuous serving beside fused MFL rounds.
+
 Every entry point takes ``device=`` and defaults to ``"cuda"``; without a
 card it raises unless the caller asks for ``device="cpu"`` (``device.py``).
 """

@@ -182,11 +182,12 @@ def ssd_chunk(x, cum, Bm, Cm):
     return ref.ssd_chunk_ref(x, cum, Bm, Cm)
 
 
-def ssd_forward(x, dt, A, Bm, Cm, chunk: int):
+def ssd_forward(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     """Same contract as ``models.mamba2.ssd_chunked``.
 
     x: [B,S,nh,hp]; dt: [B,S,nh] fp32; A: [nh] or per batch row [B,nh];
-    Bm/Cm: [B,S,N].  Returns y [B,S,nh,hp] in x's type."""
+    Bm/Cm: [B,S,N].  Returns y [B,S,nh,hp] in x's type; with
+    ``return_state`` also the recurrence's final state [B,nh,N,hp] fp32."""
     Bsz, S, nh, hp = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -210,4 +211,5 @@ def ssd_forward(x, dt, A, Bm, Cm, chunk: int):
         h = h * chunk_decay[:, c, :, None, None] + states[:, c]
     h_prev = torch.stack(h_prev, dim=1)                          # [B,nc,nh,N,hp]
     y_off = torch.einsum("bctn,bcth,bchnp->bcthp", Cc, torch.exp(cum), h_prev)
-    return (y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype)
+    y = (y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype)
+    return (y, h) if return_state else y

@@ -1,11 +1,13 @@
-"""Model configuration for the FL encoder backbones.
+"""Model configuration and layer-pattern derivation.
 
-The port's own copy of the parts of the JAX package's ``models/config.py``
-that the encoders read: ``LayerSpec``, ``ModelConfig`` (the fields the
-transformer and Mamba2 blocks use, with the derived ``hd``, ``d_inner``,
-``ssm_n_heads``, ``block_pattern`` and ``n_blocks``), and the FL encoder
-presets.  The layer stack is ``n_blocks`` repetitions of a super-block
-(``block_pattern``); uniform architectures use a block of size 1.
+The port's own copy of the JAX package's ``models/config.py``: one
+``ModelConfig`` covers every architecture family of the registry
+(``configs/``: dense / moe / hybrid / ssm / vlm / audio) and the FL encoder
+presets, with the same fields in the same order, the derived ``hd``,
+``d_inner``, ``ssm_n_heads``, ``block_pattern`` and ``n_blocks``, and
+``reduced`` for the small CPU variants.  The layer stack is ``n_blocks``
+repetitions of a super-block (``block_pattern``); uniform architectures
+use a block of size 1.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                  # dense|moe|hybrid|ssm
+    arch_type: str                  # dense|moe|hybrid|ssm|vlm|audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -35,12 +37,18 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None          # default d_model // n_heads
     # --- attention flavour ---
+    qk_norm: bool = False
+    qkv_bias: bool = False
     sliding_window: Optional[int] = None    # window for "local" layers
     local_global_ratio: int = 0             # N local + 1 global per block
     rope_theta: float = 10000.0
     # --- MoE ---
     n_experts: int = 0
-    moe_every: int = 1
+    top_k: int = 0
+    moe_every: int = 1          # MoE on layers with i % moe_every == moe_every-1
+    expert_d_ff: Optional[int] = None       # per-expert d_ff != dense d_ff
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
     # --- SSM / hybrid ---
     attn_every: int = 0         # hybrid: one attn layer per `attn_every`
     ssm_state: int = 0
@@ -48,9 +56,18 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 256
+    # --- encoder-decoder (whisper) ---
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    # --- multimodal (decision-level fusion) ---
+    modalities: Tuple[str, ...] = ("text",)
+    frontend_dims: Tuple[int, ...] = ()     # stub embedding dims per extra modality
     # --- numerics ---
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
+    # --- misc ---
+    tie_embeddings: bool = False
+    source: str = ""            # citation (paper / model card)
 
     # ------------------------------------------------------------------
     @property
@@ -95,6 +112,35 @@ class ModelConfig:
             raise ValueError(f"{self.name}: n_layers={self.n_layers} not "
                              f"divisible by super-block size {bp}")
         return self.n_layers // bp
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A CPU-smoke-test variant of the same family (2 blocks, tiny
+        dims), field for field the JAX package's."""
+        bp = len(self.block_pattern())
+        small = dict(
+            n_layers=min(self.n_layers, 2 * bp),
+            d_model=min(self.d_model, 128),
+            n_heads=min(self.n_heads, 4),
+            n_kv_heads=min(self.n_kv_heads, 2),
+            head_dim=32,
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            expert_d_ff=(min(self.expert_d_ff, 128) if self.expert_d_ff
+                         else None),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=16 if self.ssm_state else self.ssm_head_dim,
+            ssm_chunk=32 if self.ssm_state else self.ssm_chunk,
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else None),
+            encoder_layers=(min(self.encoder_layers, 2)
+                            if self.encoder_layers else 0),
+            frontend_dims=tuple(min(d, 128) for d in self.frontend_dims),
+            dtype="float32",
+        )
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
 
 
 # ---------------------------------------------------------------------------

@@ -9,17 +9,24 @@ attention contraction carries no weights, so it flattens K·B into one batch
 axis.
 
 ``chunked_attention`` is the plain path (query chunks, online softmax in
-f32, never the S×S matrix across chunks); ``pallas_attention`` keeps the JAX
-package's name for the kernel path: the hand-written flash-attention kernel
+f32, never the S×S matrix across chunks; causal, sliding-window or
+bidirectional); ``pallas_attention`` keeps the JAX package's name for the
+kernel path: the hand-written flash-attention kernel
 (``kernels/flash_attention``) forward, with a backward that recomputes
 ``chunked_attention`` — the kernel has no backward, as the TPU kernel has
 none.
+
+Decode attends one query token against a KV cache [K·B, size, KH, hd]
+(a ring buffer for windowed layers), written in place at slot
+``index % size``; ``fill_attn_cache`` lands a bulk prefill's K/V at the
+slots S decode steps would have written.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,9 +63,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype):
-    return {"w": (torch.randn((d_in, d_out), generator=gen)
-                  / math.sqrt(d_in)).to(dtype)}
+def randn(gen: Optional[torch.Generator], shape) -> torch.Tensor:
+    """Standard normal draws from ``gen`` on the generator's device.
+    ``gen=None`` draws nothing: an uninitialised tensor on the default
+    device, for shapes under ``torch.device("meta")``
+    (``launch.steps.params_shape``)."""
+    if gen is None:
+        return torch.empty(shape)
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def gen_device(gen: Optional[torch.Generator]):
+    """Where a generator's params go (None: the default device)."""
+    return None if gen is None else gen.device
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               bias: bool = False):
+    p = {"w": (randn(gen, (d_in, d_out)) / math.sqrt(d_in)).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen_device(gen))
+    return p
 
 
 def dense(p, x):
@@ -95,12 +120,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def init_attention(gen: torch.Generator, cfg: ModelConfig):
     hd, H, K, D = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     dt = cfg.param_dtype
-    return {
-        "wq": init_dense(gen, D, H * hd, dt),
-        "wk": init_dense(gen, D, K * hd, dt),
-        "wv": init_dense(gen, D, K * hd, dt),
+    p = {
+        "wq": init_dense(gen, D, H * hd, dt, bias=cfg.qkv_bias),
+        "wk": init_dense(gen, D, K * hd, dt, bias=cfg.qkv_bias),
+        "wv": init_dense(gen, D, K * hd, dt, bias=cfg.qkv_bias),
         "wo": init_dense(gen, H * hd, D, dt),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dt, device=gen_device(gen))
+        p["k_norm"] = torch.zeros((hd,), dtype=dt, device=gen_device(gen))
+    return p
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions):
@@ -110,6 +139,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     q = dense(p["wq"], x).reshape(K, B, S, H, hd)
     k = dense(p["wk"], x).reshape(K, B, S, KH, hd)
     v = dense(p["wv"], x).reshape(K, B, S, KH, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return (q.reshape(K * B, S, H, hd), k.reshape(K * B, S, KH, hd),
@@ -132,11 +164,13 @@ def _attn_chunk(q, k, v, mask, scale):
                         (e / torch.clamp_min(z, 1e-30)).to(v.dtype), v)
 
 
-def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024):
+def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024,
+                      causal: bool = True):
     """Causal (optionally sliding-window) attention, queries and keys at
-    the same positions.
+    the same positions; ``causal=False`` (no window) lets every query see
+    every key, as the Whisper encoder and the cross-attention do.
 
-    q: [B, S, H, hd], k/v: [B, S, KH, hd].  Returns [B, S, H, hd]."""
+    q: [B, Sq, H, hd], k/v: [B, Sk, KH, hd].  Returns [B, Sq, H, hd]."""
     B, Sq, H, hd = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     R = H // KH
@@ -151,11 +185,13 @@ def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024):
     vg = v.permute(0, 2, 1, 3)
     outs = []
     if window is None:
-        # each q chunk sees keys [0, t0 + chunk)
+        # causal: each q chunk sees keys [0, t0 + chunk); bidirectional:
+        # all keys
         kpos = torch.arange(Sk, device=dev)
         for t0 in range(0, Sq, chunk):
             qpos = t0 + torch.arange(chunk, device=dev)
-            mask = kpos[None, :] <= qpos[:, None]
+            mask = (kpos[None, :] <= qpos[:, None] if causal else
+                    torch.ones((chunk, Sk), dtype=torch.bool, device=dev))
             outs.append(_attn_chunk(qg[:, :, :, t0:t0 + chunk], kg, vg, mask,
                                     scale))
     else:
@@ -230,6 +266,86 @@ def attention_fwd(p, x, cfg: ModelConfig, *, window: Optional[int],
     y, _, _ = attention_prefill(p, x, cfg, window=window, positions=positions,
                                 chunk=chunk, impl=impl)
     return y
+
+
+def fill_attn_cache(cache: dict, k, v, *, seq_len: int) -> dict:
+    """Write bulk-prefill K/V [B, S, KH, hd] into a decode cache as if S
+    decode steps had run: slot ``i % size`` holds position i's K/V, later
+    positions overwriting earlier ones in the ring buffer — only the last
+    ``min(S, size)`` positions survive, at their ring slots.  Writes the
+    cache's tensors in place and returns the cache."""
+    size = cache["k"].shape[1]
+    S = k.shape[1]
+    n = min(S, size)
+    slots = torch.as_tensor(np.arange(S - n, S) % size,
+                            device=cache["k"].device)
+    cache["k"].index_copy_(1, slots, k[:, S - n:].to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slots, v[:, S - n:].to(cache["v"].dtype))
+    return cache
+
+
+# ----------------------------------------------------------------------------
+# decode (single token vs KV cache)
+# ----------------------------------------------------------------------------
+def init_attn_cache(cfg: ModelConfig, batch: int, seq: int,
+                    window: Optional[int], dtype, device=None) -> dict:
+    size = seq if window is None else min(window, seq)
+    KH, hd = cfg.n_kv_heads, cfg.hd
+    return {
+        "k": torch.zeros((batch, size, KH, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, KH, hd), dtype=dtype, device=device),
+    }
+
+
+def as_index(index, device) -> torch.Tensor:
+    """The decode position as a 0-d int64 tensor on ``device`` (a device
+    tensor passes through without a copy, so a captured step reads it)."""
+    if isinstance(index, torch.Tensor) and index.device == device:
+        return index.long() if index.dtype != torch.long else index
+    return torch.as_tensor(int(index), dtype=torch.long, device=device)
+
+
+def attention_decode(p, x, cache: dict, index, cfg: ModelConfig, *,
+                     window: Optional[int]):
+    """x: [K, B, 1, D]; cache k/v [K·B, size, KH, hd]; ``index`` = the
+    number of tokens already cached (an int or a 0-d device tensor).
+
+    Returns (y [K, B, 1, D], cache): the new token's K/V are written into
+    the cache in place at ring slot ``index % size`` (the JAX package
+    donates the cache and gets the same effect), with no read-back of
+    ``index``, so the step can be captured in a CUDA graph."""
+    K, B = x.shape[:2]
+    hd, H, KH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    R = H // KH
+    dev = x.device
+    index = as_index(index, dev)
+    q, k, v = _project_qkv(p, x, cfg, index.reshape(1))
+    size = cache["k"].shape[1]
+    slot = torch.remainder(index, size).reshape(1)
+    ck, cv = cache["k"], cache["v"]
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+
+    kpos = torch.arange(size, device=dev)
+    if window is None:
+        valid = kpos <= index                        # positions written so far
+    else:
+        # ring buffer: slot s holds absolute position p with p % size == s,
+        # valid within the last ``size`` tokens (the new one included)
+        abs_pos = kpos + ((index - kpos) // size) * size
+        abs_pos = torch.where(abs_pos > index, abs_pos - size, abs_pos)
+        valid = ((abs_pos >= 0) & (abs_pos >= index - size + 1)
+                 & (abs_pos <= index))
+    n = K * B
+    qh = q.reshape(n, 1, KH, R, hd).permute(0, 2, 3, 1, 4)   # [n,KH,R,1,hd]
+    kh = ck.permute(0, 2, 1, 3)                              # [n,KH,size,hd]
+    vh = cv.permute(0, 2, 1, 3)
+    s = torch.einsum("bgrqh,bgkh->bgrqk", qh, kh).float() / math.sqrt(hd)
+    s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(vh.dtype)
+    o = torch.einsum("bgrqk,bgkh->bgrqh", w, vh)
+    o = o.permute(0, 3, 1, 2, 4).reshape(K, B, 1, H * hd)
+    return dense(p["wo"], o), cache
 
 
 # ----------------------------------------------------------------------------

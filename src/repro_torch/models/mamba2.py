@@ -12,6 +12,10 @@ Parameters carry a leading cohort axis K (``wz`` [K, D, d_inner], ...),
 with the JAX package's leaf names; the z/x/B/C/dt projections stay separate
 arrays, as there.  The SSD contraction carries no weights, so it flattens
 K·B into one batch axis, with the per-client ``A`` repeated per row.
+
+Decode keeps a constant-size cache — the depthwise conv's last taps-1 raw
+inputs and the SSM state [K·B, nh, N, hp] — written in place;
+``mamba_prefill`` exports the state S decode steps would reach.
 """
 from __future__ import annotations
 
@@ -22,19 +26,19 @@ import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ops as ssd_ops
 from .config import ModelConfig
-from .layers import kmm, per_client, rms_norm
+from .layers import gen_device, kmm, per_client, randn, rms_norm
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig):
     D, di, N, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads
     dt = cfg.param_dtype
+    dev = gen_device(gen)
 
     def proj(d_in, d_out):
-        return (torch.randn((d_in, d_out), generator=gen)
-                / math.sqrt(d_in)).to(dt)
+        return (randn(gen, (d_in, d_out)) / math.sqrt(d_in)).to(dt)
 
     def shift(n):                   # identity conv: the last tap is 1
-        w = torch.zeros((cfg.ssm_conv, n), dtype=dt)
+        w = torch.zeros((cfg.ssm_conv, n), dtype=dt, device=dev)
         w[-1] = 1.0
         return w
 
@@ -44,15 +48,15 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig):
         "wB": proj(D, N),
         "wC": proj(D, N),
         "wdt": proj(D, nh),
-        "conv_x": (torch.randn((cfg.ssm_conv, di), generator=gen)
-                   * 0.1).to(dt),
+        "conv_x": (randn(gen, (cfg.ssm_conv, di)) * 0.1).to(dt),
         "conv_B": shift(N),
         "conv_C": shift(N),
-        "conv_bx": torch.zeros((di,), dtype=dt),
-        "dt_bias": torch.zeros((nh,), dtype=torch.float32),
-        "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32)),
-        "D": torch.ones((nh,), dtype=torch.float32),
-        "norm": torch.zeros((di,), dtype=dt),
+        "conv_bx": torch.zeros((di,), dtype=dt, device=dev),
+        "dt_bias": torch.zeros((nh,), dtype=torch.float32, device=dev),
+        "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                        device=dev)),
+        "D": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "norm": torch.zeros((di,), dtype=dt, device=dev),
         "out_proj": proj(di, D),
     }
 
@@ -69,14 +73,17 @@ def _causal_conv(x, w, b=None):
     return F.silu(out)
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     """Chunked SSD, the plain path.
 
     x:  [B, S, nh, hp]   (conv'd + silu'd input)
     dt: [B, S, nh]       (post-softplus step sizes, fp32)
     A:  [nh] or per batch row [B, nh] (negative, fp32)
     Bm: [B, S, N], Cm: [B, S, N]
-    Returns y: [B, S, nh, hp] in x's type.
+    Returns y: [B, S, nh, hp] in x's type; with ``return_state`` also the
+    final recurrent state h_S [B, nh, N, hp] fp32 — the inter-chunk
+    recurrence's last carry, the state S sequential ``mamba_decode`` steps
+    reach (the prefill's cache export).
     """
     Bsz, S, nh, hp = x.shape
     N = Bm.shape[-1]
@@ -120,7 +127,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     # --- inter-chunk contribution: y_off[t] = C_t · (exp(cum_t) * h_prev) ---
     in_decay = torch.exp(cum)                                     # [B,nc,Q,nh]
     y_off = torch.einsum("bctn,bcth,bchnp->bcthp", Cc, in_decay, h_prev)
-    return (y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype)
+    y = (y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype)
+    return (y, h) if return_state else y
 
 
 class _SSDPallas(torch.autograd.Function):
@@ -170,3 +178,115 @@ def mamba_fwd(p, u, cfg: ModelConfig, *, impl: str = "xla"):
     y = y.reshape(K, B, S, cfg.d_inner)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return kmm(y, p["out_proj"])
+
+
+# ----------------------------------------------------------------------------
+# decode: a constant-size cache of conv tails and the SSM state
+# ----------------------------------------------------------------------------
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> dict:
+    taps = cfg.ssm_conv
+    return {
+        "conv_x": torch.zeros((batch, taps - 1, cfg.d_inner), dtype=dtype,
+                              device=device),
+        "conv_B": torch.zeros((batch, taps - 1, cfg.ssm_state), dtype=dtype,
+                              device=device),
+        "conv_C": torch.zeros((batch, taps - 1, cfg.ssm_state), dtype=dtype,
+                              device=device),
+        "ssm": torch.zeros((batch, cfg.ssm_n_heads, cfg.ssm_state,
+                            cfg.ssm_head_dim), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def _conv_step(tail, new, w, b=None):
+    """tail: [K, B, taps-1, C]; new: [K, B, C]; w: [K, taps, C] ->
+    (silu'd out [K, B, C], new tail [K, B, taps-1, C])."""
+    window = torch.cat([tail, new[:, :, None, :].to(tail.dtype)], dim=2)
+    out = torch.einsum("zbkc,zkc->zbc", window, w)
+    if b is not None:
+        out = out + per_client(b, out)
+    return F.silu(out), window[:, :, 1:, :]
+
+
+def mamba_decode(p, u, cache: dict, cfg: ModelConfig):
+    """u: [K, B, 1, D]; cache leaves [K·B, ...] -> (y [K, B, 1, D], cache),
+    the conv tails and the state written into the cache in place."""
+    K, B = u.shape[:2]
+    nh, hp = cfg.ssm_n_heads, cfg.ssm_head_dim
+    u0 = u[:, :, 0]                                               # [K,B,D]
+
+    def tail(name):
+        t = cache[name]
+        return t.reshape(K, B, *t.shape[1:])
+
+    z = kmm(u0, p["wz"])
+    x, tx = _conv_step(tail("conv_x"), kmm(u0, p["wx"]), p["conv_x"],
+                       p["conv_bx"])
+    Bm, tB = _conv_step(tail("conv_B"), kmm(u0, p["wB"]), p["conv_B"])
+    Cm, tC = _conv_step(tail("conv_C"), kmm(u0, p["wC"]), p["conv_C"])
+    a = kmm(u0, p["wdt"]).float() + per_client(p["dt_bias"], u0)
+    dt = torch.logaddexp(a, torch.zeros_like(a))                  # [K,B,nh]
+    A = -torch.exp(p["A_log"])                                    # [K,nh]
+    dec = torch.exp(dt * A[:, None, :])
+    xh = x.reshape(K, B, nh, hp).float()
+    h = tail("ssm") * dec[..., None, None] + torch.einsum(
+        "zbn,zbhp->zbhnp", Bm.float(), xh * dt[..., None])
+    y = torch.einsum("zbn,zbhnp->zbhp", Cm.float(), h)
+    y = y + xh * p["D"][:, None, :, None]
+    y = y.reshape(K, B, cfg.d_inner).to(u.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    for name, new in (("conv_x", tx), ("conv_B", tB), ("conv_C", tC),
+                      ("ssm", h)):
+        cache[name].copy_(new.reshape(cache[name].shape))
+    return kmm(y, p["out_proj"])[:, :, None, :], cache
+
+
+def _conv_tail(raw, taps: int):
+    """The last taps-1 raw (pre-activation) projections [K, B, S, C] ->
+    [K, B, taps-1, C], zero-padded on the left when S < taps-1 — the
+    implicit zero history of ``_causal_conv`` and the zeros of
+    ``init_mamba_cache``."""
+    S = raw.shape[2]
+    t = raw[:, :, max(S - (taps - 1), 0):, :]
+    pad = (taps - 1) - t.shape[2]
+    return F.pad(t, (0, 0, pad, 0)) if pad else t
+
+
+def mamba_prefill(p, u, cfg: ModelConfig, *, impl: str = "pallas"):
+    """Bulk prefill: the chunked-SSD forward plus a decode-cache export.
+
+    u: [K, B, S, D] -> (y [K, B, S, D], cache with leaves [K·B, ...]),
+    ``cache`` exactly the state S sequential ``mamba_decode`` steps leave
+    behind: the conv tails hold the last ``ssm_conv - 1`` raw projections
+    and ``ssm`` is the chunked scan's final fp32 state.  ``impl="pallas"``
+    runs the SSD contraction through ``kernels/ssd_scan.ssd_forward`` (the
+    kernel on a CUDA tensor), ``"xla"`` through ``ssd_chunked``."""
+    K, B, S, D = u.shape
+    nh, hp = cfg.ssm_n_heads, cfg.ssm_head_dim
+    z = kmm(u, p["wz"])
+    xr, Br, Cr = kmm(u, p["wx"]), kmm(u, p["wB"]), kmm(u, p["wC"])
+    x = _causal_conv(xr, p["conv_x"], p["conv_bx"])
+    Bm = _causal_conv(Br, p["conv_B"])
+    Cm = _causal_conv(Cr, p["conv_C"])
+    a = kmm(u, p["wdt"]).float() + per_client(p["dt_bias"], u)
+    dt = torch.logaddexp(a, torch.zeros_like(a))
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(K * B, S, nh, hp)
+    Q = min(cfg.ssm_chunk, S)
+    while S % Q:                   # self-adjust to a divisor of S
+        Q //= 2
+    ssd = ssd_ops.ssd_forward if impl == "pallas" else ssd_chunked
+    y, h = ssd(xh, dt.reshape(K * B, S, nh), A.repeat_interleave(B, dim=0),
+               Bm.reshape(K * B, S, -1), Cm.reshape(K * B, S, -1), Q,
+               return_state=True)
+    y = (y + xh * p["D"].repeat_interleave(B, dim=0)[:, None, :, None]
+         .to(x.dtype))
+    y = y.reshape(K, B, S, cfg.d_inner)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    taps = cfg.ssm_conv
+    cache = {"conv_x": _conv_tail(xr, taps), "conv_B": _conv_tail(Br, taps),
+             "conv_C": _conv_tail(Cr, taps), "ssm": h}
+    cache = {k: v.reshape(K * B, *v.shape[2:]) if k != "ssm" else v
+             for k, v in cache.items()}
+    return kmm(y, p["out_proj"]), cache
