@@ -83,6 +83,22 @@ Phases, each of which fails the run when it fails:
    and at K = 100 and 1000, rows of 1-5 clients, P = 1, 20, 24; one whole
    solve with the kernels against one with the plain versions on the same
    draws (same a*, J and B within tolerance);
+6. ``[train]``: the LM train step (``launch.steps.make_train_step``,
+   kernel route) at full width from a random init, bf16 — qwen3-0.6b
+   (28 layers, B=8, S=256, 8 steps), whisper-base (6+6, B=8, S=256, 64
+   source frames, 4 steps), mamba2-370m (48 layers, B=4, S=512, 3 steps),
+   llava-next-34b and llama4-scout-17b-a16e cut to one layer (B=4, S=256,
+   3 steps, Adafactor as for the full configs; llava one more step with
+   ``loss_chunk=128``) — each with the peak-memory and launch counters
+   reset just before it and the launches held to one a mixer layer a step
+   and one fusion-loss launch each way a loss: step ms p50, tok/s, peak
+   GiB, mfu (``models/analysis.py``'s 6·N_active·B·S over the bf16 dense
+   peak), losses; one step's value and grads, kernel route against plain
+   route; a profiled qwen3 step; reduced f32 twins of six archs (jamba:
+   MoE plus SSD), 3 steps card vs CPU; llama4-scout's ``serve()`` at one
+   layer (the MoE in the captured decode graph, 0 recaptures); every
+   kernel against its plain version at the train steps' operands (timed
+   in phase 4, their launches the JSON line's ``"train"`` path);
 4. time each kernel (CUDA events, after warm-up) beside its plain version,
    its bound and, where one PyTorch call computes the same function, that
    call, at every shape of phases 2 and 3b; a ``[floor]`` line gives the
@@ -94,6 +110,7 @@ per-kernel JSON, and before that the card's name and power limit.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -247,6 +264,33 @@ GEMMA_LOCAL = (2, 2048, 16, 8, 256, 1024)
 #: full width
 CONT_KW = dict(rounds=3, steps_per_round=16)
 CONT_B, CONT_PROMPT = 4, 32
+
+#: the training path (``launch/train.py``, ``launch/steps.py``'s train
+#: half): the JAX configs unchanged in width, bf16, random init —
+#: (arch, layers kept or None for all, batch, sequence, steps); each run's
+#: optimizer is ``make_optimizer``'s for the FULL config (Adafactor from
+#: 30 B params on), its learning rate ``train_standard``'s
+#: ``warmup_cosine(3e-4, 10, steps)``
+TRAIN_RUNS = (("qwen3-0.6b", None, 8, 256, 8),
+              ("whisper-base", None, 8, 256, 4),
+              ("mamba2-370m", None, 4, 512, 3),
+              ("llava-next-34b", 1, 4, 256, 3),
+              ("llama4-scout-17b-a16e", 1, 4, 256, 3))
+#: the VLM's extra step through ``vlm_loss_chunked``
+TRAIN_LOSS_CHUNK = 128
+#: reduced float32 archs run 3 steps on the card and on the CPU
+TRAIN_TWINS = ("qwen3-0.6b", "whisper-base", "mamba2-370m",
+               "llava-next-34b", "llama4-scout-17b-a16e", "jamba-v0.1-52b")
+TWIN_LR = 1e-3
+#: full-width kernel route against the plain route, one step, bf16: the
+#: loss within 1e-3 of itself, the grads' global relative error (‖Δg‖ /
+#: ‖g‖) within 3e-2, every leaf's max|Δ| within 0.25 of its max|g| — set
+#: from the readings of five archs (loss ≤ 8.0e-5, global 6.7e-3–1.02e-2,
+#: worst leaf 1.4e-2–9.4e-2, llama4-scout's MoE leaves the largest)
+TOL_TRAIN_LOSS_BF16, TOL_TRAIN_GRAD_BF16, TOL_TRAIN_LEAF_BF16 = \
+    1e-3, 3e-2, 0.25
+#: the MoE serve at full width: (arch, layers, batch, prompt, generated)
+MOE_SERVE = ("llama4-scout-17b-a16e", 1, 4, 64, 16)
 
 
 def gpu_line() -> str:
@@ -426,16 +470,18 @@ def case_label(torch, c):
 def work(case, nblk):
     """(bytes, operations) each fusion-loss kernel needs on this case: every
     input read once (the logits in their own type), every output written
-    once.  The backward is counted as the main path runs it, without
+    once: each modality's float32 gradient at that modality's own size (a
+    broadcast head's [K, T/S, V], not the token grid the kernel writes it
+    on).  The backward is counted as the main path runs it, without
     partials."""
     K, T, V, M = case["shape"]
     KT = K * T
     operands = sum(x.numel() * x.element_size() for x in case["logits"])
+    dlogits = sum(x.numel() * 4 for x in case["logits"])
     rows_in = KT * 4 + M * KT * 4                          # labels, avail
     fwd = (operands + rows_in + (3 * KT + 3 * M * KT) * 4,
            KT * V * (5 * M + 4))
-    bwd = (operands + rows_in + (2 * KT + 2 * M * KT) * 4
-           + M * KT * V * 4,
+    bwd = (operands + rows_in + (2 * KT + 2 * M * KT) * 4 + dlogits,
            KT * V * (11 * M + 5))
     red = (K * nblk * M * 2 * 4 + 2 * K * M * 4, K * nblk * M * 2)
     return {"fusion_loss_fwd": fwd, "fusion_loss_bwd": bwd,
@@ -1954,6 +2000,359 @@ def continuous_phase(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: training — the LM train step at full width, card vs CPU, kernel
+# route vs plain route, the MoE serve
+# ---------------------------------------------------------------------------
+def _train_cfg(arch, n_layers=None, reduced=False):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+        if cfg.ssm_state:
+            cfg = dataclasses.replace(cfg, ssm_chunk=8)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def _train_batches(cfg, B, S, n, device):
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import train
+    stream, rng = TokenStream(cfg.vocab_size, seed=0), \
+        np.random.default_rng(0)
+    return [train.to_device(train.make_batch(cfg, stream, rng, B, S),
+                            device) for _ in range(n)]
+
+
+def _grad_errs(ga, gb):
+    """(‖ga − gb‖ / ‖gb‖ over every leaf, the largest leaf's max|Δ| over
+    its max|gb|)."""
+    from repro_torch.core.trees import tree_leaves
+    num = den = 0.0
+    worst = 0.0
+    for a, b in zip(tree_leaves(ga), tree_leaves(gb)):
+        d = (a.float() - b.float())
+        num += float(d.square().sum())
+        den += float(b.float().square().sum())
+        worst = max(worst, float(d.abs().max())
+                    / max(float(b.float().abs().max()), 1e-30))
+    return math.sqrt(num / max(den, 1e-30)), worst
+
+
+def train_kernel_vs_plain(torch, cfg, params, batch, label, **kw):
+    """One step's value and grads at full width from the same params,
+    kernel route against plain route (``impl="pallas"`` / ``"xla"``)."""
+    from repro_torch.launch import steps
+    out = {}
+    for impl in ("pallas", "xla"):
+        loss = steps.make_loss_fn(cfg, attn_chunk=256, impl=impl, **kw)
+        out[impl] = steps.value_and_grad(loss, params, batch)
+    (lk, gk), (lp, gp) = out["pallas"], out["xla"]
+    l_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    g_rel, g_worst = _grad_errs(gk, gp)
+    print(f"[train] {label} kernel route vs plain route, one step from "
+          f"the same params (bf16): loss {float(lk):.6f} vs "
+          f"{float(lp):.6f}, relative {l_err:.3e} (tol "
+          f"{TOL_TRAIN_LOSS_BF16:g}); grads ‖Δg‖/‖g‖ {g_rel:.3e} (tol "
+          f"{TOL_TRAIN_GRAD_BF16:g}), worst leaf max|Δ|/max|g| "
+          f"{g_worst:.3e} (tol {TOL_TRAIN_LEAF_BF16:g})")
+    if not (l_err <= TOL_TRAIN_LOSS_BF16 and g_rel <= TOL_TRAIN_GRAD_BF16
+            and g_worst <= TOL_TRAIN_LEAF_BF16):
+        raise AssertionError(f"{label}: the kernel route's loss or grads "
+                             f"disagree with the plain route's")
+    del out, gk, gp
+    torch.cuda.empty_cache()
+
+
+def _expected_train_launches(cfg, n_steps, loss_steps):
+    """Kernel launches of ``n_steps`` train steps: the attention kernel
+    once an attention layer (the decoder's self-attention for Whisper),
+    the SSD kernel once a Mamba2 layer (both backwards recompute through
+    the plain path), the fusion loss once a loss call each way."""
+    pattern = cfg.block_pattern()
+    n_attn = (cfg.n_layers if cfg.arch_type == "audio" else
+              cfg.n_blocks * sum(s.kind == "attn" for s in pattern))
+    n_ssd = cfg.n_blocks * sum(s.kind == "mamba" for s in pattern)
+    fused = cfg.arch_type in ("audio", "vlm")
+    return {"flash_attention_fwd": n_attn * n_steps,
+            "ssd_chunk_fwd": n_ssd * n_steps,
+            "fusion_loss_fwd": loss_steps if fused else 0,
+            "fusion_loss_bwd": loss_steps if fused else 0}
+
+
+def train_run(torch, counters, found, arch, n_layers, B, S, n_steps):
+    """One full-width training run through ``launch.steps``: the kernel
+    route against the plain route on step 0's batch, then ``n_steps``
+    steps with the peak-memory counter and the launch counters reset just
+    before, the kernels' operands recorded on the way.  Returns (launches,
+    summary)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fusion_loss import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import analysis
+    from repro_torch.optim import warmup_cosine
+    reset, read = counters
+    t_run = time.perf_counter()
+    cfg = _train_cfg(arch, n_layers)
+    n_full = steps.param_count(steps.params_shape(_train_cfg(arch)))
+    opt, opt_name = steps.make_optimizer(
+        cfg, n_full, lr=warmup_cosine(3e-4, 10, n_steps))
+    params = steps.init_fn(cfg)(torch.Generator(DEVICE).manual_seed(0))
+    batches = _train_batches(cfg, B, S, n_steps, DEVICE)
+    label = (f"{arch} ({cfg.n_layers} of {_train_cfg(arch).n_layers} "
+             f"layers)" if n_layers else arch)
+    train_kernel_vs_plain(torch, cfg, params, batches[0], label)
+    n_total, n_active = analysis.param_counts(params, cfg)
+    flops = analysis.model_flops(cfg, params, analysis.StepShape(
+        S, B, "train"))["model_flops"]
+    opt_state = opt.init(params)
+    step = steps.make_train_step(cfg, opt, attn_chunk=min(256, S))
+    caps = [Capture(torch, fa_ops, "flash_attention", f"train {arch}"),
+            Capture(torch, ssd_ops, "ssd_chunk", f"train {arch}"),
+            Capture(torch, ops, "fusion_loss_fwd", f"train {arch}")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    ms, losses = [], []
+    with caps[0], caps[1], caps[2]:
+        for b in batches:
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+    now = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for key, cap in zip(("attn", "ssd_chunk", "fusion"), caps):
+        for shape, rec in cap.seen.items():
+            found.setdefault(key, {}).setdefault(shape, rec)
+    want = _expected_train_launches(cfg, n_steps, n_steps)
+    p50 = float(np.median(ms[1:]))
+    mfu = flops / (p50 / 1e3) / PEAK_BF16_FLOPS
+    print(f"[train] {label}: B={B} S={S} {n_steps} steps, {opt_name}, "
+          f"{cfg.dtype}, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_total / 1e9:.4f} B params ({n_active / 1e9:.4f} B active): "
+          f"step ms p50 {p50:.3f} after step 0 (steps "
+          + ", ".join(f"{x:.3f}" for x in ms)
+          + f"); {B * S / (p50 / 1e3):.1f} tok/s; peak "
+          f"{peak:.3f} GiB; mfu {mfu:.4%} ({flops / 1e12:.3f} model "
+          f"TFLOP a step over the bf16 dense peak); losses "
+          + " -> ".join(f"{x:.4f}" for x in losses) + "; launches "
+          + f"{({k: v for k, v in now.items() if v})}; "
+          f"{time.perf_counter() - t_run:.3f} s ({gpu_line()})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {arch}: a loss is not finite")
+    for k, v in want.items():
+        if now[k] != v:
+            raise AssertionError(f"train {arch}: {k} launched {now[k]} "
+                                 f"times, {v} expected")
+    summary = dict(cfg=cfg, params=params, opt=opt, opt_state=opt_state,
+                   batches=batches, step=step, p50=p50, peak=peak, mfu=mfu)
+    return now, summary
+
+
+def train_vlm_chunked_step(torch, counters, found, run):
+    """One more VLM step through ``vlm_loss_chunked`` (TRAIN_LOSS_CHUNK
+    positions a chunk, each through the fusion-loss kernels)."""
+    from repro_torch.kernels.fusion_loss import ops
+    from repro_torch.launch import steps
+    reset, read = counters
+    cfg, b = run["cfg"], run["batches"][0]
+    S = b["tokens"].shape[1]
+    train_kernel_vs_plain(torch, cfg, run["params"], b,
+                          f"llava-next-34b loss_chunk={TRAIN_LOSS_CHUNK}",
+                          loss_chunk=TRAIN_LOSS_CHUNK)
+    step = steps.make_train_step(cfg, run["opt"], attn_chunk=min(256, S),
+                                 loss_chunk=TRAIN_LOSS_CHUNK)
+    cap = Capture(torch, ops, "fusion_loss_fwd", "train llava chunked")
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cap:
+        _, _, loss = step(run["params"], run["opt_state"], b)
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    now = read()
+    for shape, rec in cap.seen.items():
+        found.setdefault("fusion", {}).setdefault(shape, rec)
+    chunks = S // TRAIN_LOSS_CHUNK
+    want = _expected_train_launches(cfg, 1, chunks)
+    print(f"[train] llava-next-34b step with loss_chunk={TRAIN_LOSS_CHUNK}"
+          f" ({chunks} chunks): {dt:.3f} ms, loss {float(loss):.4f}; "
+          f"launches {({k: v for k, v in now.items() if v})}")
+    if not math.isfinite(float(loss)) or any(now[k] != v
+                                             for k, v in want.items()):
+        raise AssertionError(f"train llava chunked: loss {float(loss)}, "
+                             f"launches {now}, {want} expected")
+    return now
+
+
+def train_phase(torch, counters, found):
+    """Every ``TRAIN_RUNS`` run (the qwen3 one profiled for a step), the
+    VLM's chunked-loss step.  Returns the launches of the train steps."""
+    total = {}
+    for arch, n_layers, B, S, n_steps in TRAIN_RUNS:
+        now, run = train_run(torch, counters, found, arch, n_layers, B, S,
+                             n_steps)
+        if arch == "qwen3-0.6b":
+            profile_fn(torch, lambda: run["step"](
+                run["params"], run["opt_state"], run["batches"][0]),
+                "train qwen3-0.6b one step (B=8, S=256)", top=12)
+        if arch == "llava-next-34b":
+            extra = train_vlm_chunked_step(torch, counters, found, run)
+            now = {k: now[k] + extra[k] for k in now}
+        for k, v in now.items():
+            total[k] = total.get(k, 0) + v
+        del run
+        torch.cuda.empty_cache()
+    return total
+
+
+def train_twin_phase(torch, counters):
+    """Reduced float32 archs, 3 steps on the card (kernel route) against
+    the CPU (plain versions), each step from the CPU's params and
+    optimizer state of the step before (AdamW's and Adafactor's sign can
+    flip where a gradient is near 0, and a flipped coordinate can flip an
+    MoE router later): the loss within 1e-5 relative, the params within
+    2.5·lr with at least 99.9 % of the elements within 1e-4 of max(1,
+    |CPU|), every optimizer state leaf within 1e-4 — the CPU tests'
+    tolerances (tests/test_torch_train.py)."""
+    from repro_torch.core.trees import tree_leaves, tree_map
+    from repro_torch.launch import steps
+    reset, read = counters
+    for arch in TRAIN_TWINS:
+        cfg = _train_cfg(arch, reduced=True)
+        n_full = steps.param_count(steps.params_shape(_train_cfg(arch)))
+        opt, opt_name = steps.make_optimizer(cfg, n_full, lr=TWIN_LR)
+        step = steps.make_train_step(cfg, opt, attn_chunk=32)
+        p = steps.init_fn(cfg)(torch.Generator().manual_seed(0))
+        st = opt.init(p)
+        batches = _train_batches(cfg, 2, 64, 3, "cpu")
+        reset()
+        l_err = s_err = p_err = 0.0
+        flipped = n = 0
+        for b in batches:
+            to_card = lambda t: t.to(DEVICE)      # noqa: E731
+            pg, sg, lg = step(tree_map(to_card, p), tree_map(to_card, st),
+                              tree_map(to_card, b))
+            p, st, lc = step(p, st, b)
+            l_err = max(l_err, abs(float(lg) - float(lc))
+                        / max(1.0, abs(float(lc))))
+            for a, c in zip(tree_leaves(sg), tree_leaves(st)):
+                s_err = max(s_err, _rel(a.cpu(), c))
+            for a, c in zip(tree_leaves(pg), tree_leaves(p)):
+                err = (a.cpu().float() - c.float()).abs()
+                p_err = max(p_err, float(err.max()))
+                flipped += int((err > 1e-4 * max(1.0, float(
+                    c.float().abs().max()))).sum())
+                n += err.numel()
+        now = read()
+        kerns = {k: v for k, v in now.items() if v}
+        print(f"[train] {arch} reduced f32 card (kernels) vs cpu (plain), 3 "
+              f"steps each from the cpu's state, {opt_name}: loss rel err "
+              f"{l_err:.3e} (tol 1e-5), state rel err {s_err:.3e} (tol "
+              f"1e-4), params max|err| {p_err:.3e} (tol 2.5·lr = "
+              f"{2.5 * TWIN_LR:g}), {flipped} of {n} elements past 1e-4 "
+              f"(tol 0.1 %); card launches {kerns}")
+        want = _expected_train_launches(cfg, 3, 3)
+        if (l_err > 1e-5 or s_err > 1e-4 or p_err > 2.5 * TWIN_LR
+                or flipped > 1e-3 * n
+                or any(now[k] != v for k, v in want.items())):
+            raise AssertionError(f"train {arch}: card and cpu disagree or "
+                                 f"launches {now} != {want}")
+
+
+def moe_serve_phase(torch, counters, found):
+    """``launch.serve.serve`` of llama4-scout at full width with one
+    layer: the MoE dispatch inside the captured decode graph, 0
+    recaptures.  Returns the launches."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    reset, read = counters
+    arch, n_layers, B, prompt, gen = MOE_SERVE
+    cap = Capture(torch, fa_ops, "flash_attention", f"serve {arch}")
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    with cap:
+        out = serve.serve(_serve_args(arch, B, prompt, gen, "--n-layers",
+                                      str(n_layers)), stats)
+    now = read()
+    for shape, rec in cap.seen.items():
+        found.setdefault("attn", {}).setdefault(shape, rec)
+    cfg = stats["cfg"]
+    print(f"[serve] {arch} ({n_layers} layer, bf16, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} + shared, vocab "
+          f"{cfg.vocab_size}): B={B} prompt={prompt} generated={gen}: bulk "
+          f"prefill {stats['prefill_ms']:.3f} ms; decode "
+          f"{stats['decode_p50_ms']:.4f} ms/step median, "
+          f"{stats['decode_p99_ms']:.4f} p99 over {len(stats['decode_ms'])} "
+          f"graph replays; {stats['tok_s']:.1f} tok/s; peak "
+          f"{stats['peak_bytes'] / 2 ** 30:.3f} GiB; captures "
+          f"{stats['captures']}, recaptures {stats['captures'] - 1}; "
+          f"launches {({k: v for k, v in now.items() if v})} "
+          f"({gpu_line()})")
+    if (tuple(out.shape) != (B, gen) or stats["captures"] != 1
+            or now["flash_attention_fwd"] != n_layers):
+        raise AssertionError(f"serve {arch}: tokens {tuple(out.shape)}, "
+                             f"captures {stats['captures']}, launches {now}")
+    del out
+    torch.cuda.empty_cache()
+    return now
+
+
+def train_fusion_case(torch, rec, seed):
+    """A fusion-loss case at operands a train step handed the forward
+    kernel, with random cotangents."""
+    logits, labels, avail, seg = rec["args"]
+    K, T = labels.shape
+    M, V = len(logits), logits[0].shape[-1]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return dict(logits=list(logits), labels=labels, avail=avail,
+                d_fused=torch.randn((K, T), device=DEVICE, generator=g),
+                d_modal=torch.randn((M, K, T), device=DEVICE, generator=g),
+                seg=tuple(seg), shape=(K, T, V, M))
+
+
+def train_kernel_phase(torch, ops, ref, found):
+    """Every kernel against its plain version at the operands the train
+    steps recorded.  Returns the cases (fusion by label, attention, SSD)
+    and the max abs error per kernel against the float32 plain version."""
+    cases = {f"{rec['label']} " + "x".join(map(str, rec["args"][1].shape)):
+             train_fusion_case(torch, rec, 30 + i)
+             for i, rec in enumerate(found.get("fusion", {}).values())}
+    errs = {k: [] for k in ("fusion_loss_fwd", "fusion_loss_bwd",
+                            "fusion_loss_reduce", "flash_attention_fwd",
+                            "ssd_chunk_fwd")}
+    for label, c in cases.items():
+        fusion_check(torch, ops, ref, label, c, errs)
+    attn = [attn_case(torch, *rec["args"], rec["kw"].get("window"),
+                      rec["label"]) for rec in found.get("attn", {}).values()]
+    ssd = [ssd_case(*rec["args"], rec["label"])
+           for rec in found.get("ssd_chunk", {}).values()]
+    if len(cases) < 3 or len(attn) < 5 or not ssd:
+        raise AssertionError("train: kernel operands not recorded")
+    backbone_checks(torch, attn, ssd, {"attn": {}, "ssd_forward": {}}, errs)
+    return cases, attn, ssd, {k: max(v) for k, v in errs.items() if v}
+
+
+def train_section(torch, counters, ops, ref):
+    """Phase 6 whole: the full-width runs, the card-vs-CPU twins, the MoE
+    serve and the kernels at the recorded train operands.  Returns (the
+    train steps' launches, the MoE serve's, fusion cases, attention
+    cases, SSD cases, max errors)."""
+    found = {}
+    by_train = train_phase(torch, counters, found)
+    for k in ("flash_attention_fwd", "ssd_chunk_fwd", "fusion_loss_fwd",
+              "fusion_loss_bwd"):
+        if not by_train.get(k):
+            raise AssertionError(f"train: {k} was not launched")
+    train_twin_phase(torch, counters)
+    moe = moe_serve_phase(torch, counters, found)
+    return (by_train, moe) + train_kernel_phase(torch, ops, ref, found)
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the JCSBA solver kernels against their plain versions
 # ---------------------------------------------------------------------------
 class record_launches:
@@ -2528,6 +2927,20 @@ def main() -> int:
     ssd += s_ssd
     by_path["continuous"] = continuous_phase(torch, counters)
 
+    # phase 6: training — the full-width train runs (counters set to 0
+    # just before each), card vs CPU, the MoE serve (counted with the
+    # serve runs), the kernels at the train operands (timed with the
+    # others)
+    by_path["train"], moe, t_cases, t_attn, t_ssd, t_err = train_section(
+        torch, counters, ops, ref)
+    for k, v in moe.items():
+        by_path["serve"][k] = by_path["serve"].get(k, 0) + v
+    for k, v in t_err.items():
+        max_err[k] = max(max_err[k], v)
+    cases.update(t_cases)
+    attn += t_attn
+    ssd += t_ssd
+
     # phase 3b: the solver kernels at the main path's captured round
     solver_rows_, hp, solver_err = solver_phase(torch, capture.seen)
     solver_err["jcsba_population_kernel"] = max(
@@ -2552,7 +2965,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             # the batched main path's launches are ``launches``; the seq
             # loop's, the fused loop's and the four timed scenario grids'
-            # (captured times replays)
+            # (captured times replays), the serve runs' (the MoE serve
+            # included), the continuous server's and the train steps'
+            # (``[train]``)
             "launches_by_path": {"batched": launches[name],
                                  **{p: c.get(name, 0)
                                     for p, c in by_path.items()}},

@@ -5,8 +5,9 @@
 
 The port of the JAX package's ``launch/serve.py``, with its flags and its
 ``[serve]`` line, plus ``--device`` (default ``cuda``; the CPU only when
-asked).  Params come from a random init at the config's width (no weights
-are loaded); the prompts are the same ``np.random.default_rng(seed)`` draw
+asked) and ``--n-layers`` (cut the depth, the widths kept).  Params come
+from a random init at the config's width (no weights are loaded); the
+prompts are the same ``np.random.default_rng(seed)`` draw
 as the JAX package's, so both packages serve identical prompts.
 
 Prefill runs as one bulk pass that fills the KV cache
@@ -21,6 +22,7 @@ params hot-swapped under live MFL training, see ``launch/continuous.py``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -111,6 +113,8 @@ def serve(args, stats: Optional[dict] = None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if getattr(args, "n_layers", None):
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(args.seed)
@@ -197,6 +201,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="layers to keep (default: the config's)")
     return ap
 
 

@@ -112,7 +112,9 @@ def _norm(h, scale, cfg: ModelConfig):
 
 
 def encode(params, src_embeds, cfg: ModelConfig, *, attn_chunk: int = 1024):
-    """src_embeds [B, S_src, D] -> encoder output [B, S_src, D]."""
+    """src_embeds [B, S_src, D] -> encoder output [B, S_src, D], in the
+    features' type promoted with the params' (float32 features under
+    bfloat16 params run the encoder in float32, as in the JAX package)."""
     h = src_embeds[None]
     _, B, S, _ = h.shape
     pos = torch.arange(S, device=h.device)
@@ -129,15 +131,24 @@ def encode(params, src_embeds, cfg: ModelConfig, *, attn_chunk: int = 1024):
 
 
 def decode_fwd(params, tokens, enc_out, cfg: ModelConfig, *,
-               attn_chunk: int = 1024):
-    """tokens [B, S_tgt]; enc_out [B, S_src, D] -> logits [B, S_tgt, V]."""
+               attn_chunk: int = 1024, impl: str = "xla"):
+    """tokens [B, S_tgt]; enc_out [B, S_src, D] -> logits [B, S_tgt, V].
+    ``impl="pallas"`` runs the causal self-attention through the
+    flash-attention kernel on a card (kernel forward, plain recompute
+    backward); the cross-attention stays on the plain path.
+
+    The residual stream stays in the embedding's type, and the encoder
+    output enters the cross-attention in that type: a float32 ``encode``
+    of float32 features under bfloat16 params would turn the stream
+    float32, which the JAX package's decoder scan refuses (its carry
+    keeps one type)."""
     h = params["embed"][tokens][None]
-    src = enc_out[None]
+    src = enc_out[None].to(h.dtype)
     for i in range(cfg.n_layers):
         bp = _layer(params["dec_blocks"], i)
         a = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
         h = h + L.attention_fwd(bp["self_attn"], a, cfg, window=None,
-                                chunk=attn_chunk)
+                                chunk=attn_chunk, impl=impl)
         c = L.rms_norm(h, bp["norm_x"], cfg.norm_eps)
         h = h + cross_attention_fwd(bp["cross_attn"], c, src, cfg,
                                     chunk=attn_chunk)
@@ -149,8 +160,9 @@ def audio_head_logits(params, enc_out):
     """Decision-fusion audio submodel: pooled encoder -> vocab logits
     [B, V]."""
     pooled = enc_out.mean(dim=1)
-    h = F.gelu(pooled @ params["audio_head"]["w1"], approximate="tanh")
-    return h @ params["audio_head"]["w2"]
+    h = F.gelu(torch.matmul(*L.promote(pooled, params["audio_head"]["w1"])),
+               approximate="tanh")
+    return torch.matmul(*L.promote(h, params["audio_head"]["w2"]))
 
 
 # ---------------------------------------------------------------------------

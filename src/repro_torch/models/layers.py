@@ -46,8 +46,20 @@ def per_client(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                      *v.shape[1:])
 
 
+def promote(x: torch.Tensor, w: torch.Tensor):
+    """(x, w) in their common type, as ``jnp`` promotes a product: a
+    bfloat16 weight meeting a float32 stream computes in float32 (torch
+    refuses a mixed product)."""
+    if x.dtype == w.dtype:
+        return x, w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def kmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [K, ..., d_in] @ w [K, d_in, d_out] -> [K, ..., d_out]."""
+    """x [K, ..., d_in] @ w [K, d_in, d_out] -> [K, ..., d_out], in the
+    operands' common type (``promote``)."""
+    x, w = promote(x, w)
     K = x.shape[0]
     y = torch.bmm(x.reshape(K, -1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])

@@ -17,6 +17,12 @@ them.  With ``remat`` each block runs under non-reentrant
 ``torch.utils.checkpoint``: its activations are recomputed in the backward
 (and a kernel-path block launches its mixer kernel again there).
 
+MoE layers (``models/moe.py``) run on the LM's K=1 views: their params
+carry no cohort axis, so a K>1 cohort with an MoE layer raises (no FL
+encoder preset has one).  The MoE load-balance aux is summed over the
+layers and carried out of ``backbone``/``forward`` into ``loss_fn``, as in
+the JAX package.
+
 The decode cache keeps the JAX package's layout, ``{l{i}: {k, v}}`` or the
 Mamba2 leaves, stacked [n_blocks, B, ...], so caches compare leaf by leaf.
 The serving functions write it in place (the JAX package donates it), read
@@ -37,9 +43,7 @@ from . import layers as L
 from .config import LayerSpec, ModelConfig
 from .mamba2 import (init_mamba, init_mamba_cache, mamba_decode, mamba_fwd,
                      mamba_prefill)
-
-_MOE_QUEUED = ("MoE layers are not ported yet; models/moe.py is queued in "
-               "ROADMAP.md Queue 1 item 10")
+from .moe import init_moe, moe_apply
 
 
 def k1(tree):
@@ -52,38 +56,53 @@ def k1(tree):
 # ----------------------------------------------------------------------------
 def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig,
                spec: LayerSpec):
-    if spec.moe:
-        raise NotImplementedError(_MOE_QUEUED)
     dt, dev = cfg.param_dtype, L.gen_device(gen)
     p = {"norm1": torch.zeros((cfg.d_model,), dtype=dt, device=dev)}
     if spec.kind == "attn":
         p["mixer"] = L.init_attention(gen, cfg)
     else:
         p["mixer"] = init_mamba(gen, cfg)
-    if cfg.d_ff > 0:
+    if spec.moe:
+        p["norm2"] = torch.zeros((cfg.d_model,), dtype=dt, device=dev)
+        p["ffn"] = init_moe(gen, cfg)
+    elif cfg.d_ff > 0:
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dt, device=dev)
         p["ffn"] = L.init_mlp(gen, cfg)
     return p
 
 
-def _ffn(p, x, cfg: ModelConfig):
-    if "ffn" in p:
-        x = x + L.mlp(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
-    return x
+def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec, n_groups: int):
+    """The FFN half of a layer on x [K, B, S, D]: returns (x, MoE aux, or
+    None without an MoE FFN)."""
+    aux = None
+    if "ffn" not in p:
+        return x, aux
+    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    if spec.moe:
+        if x.shape[0] != 1:
+            raise NotImplementedError(
+                "MoE layers run on the LM's K=1 views; no FL encoder "
+                "preset has one")
+        h, aux = moe_apply(tree_map(lambda t: t[0], p["ffn"]), h[0], cfg,
+                           n_groups=n_groups)
+        h = h[None]
+    else:
+        h = L.mlp(p["ffn"], h)
+    return x + h, aux
 
 
 def apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, *,
-                attn_chunk: int = 1024, impl: str = "xla"):
-    """One pre-norm residual layer on x [K, B, S, D]."""
-    if spec.moe:
-        raise NotImplementedError(_MOE_QUEUED)
+                n_groups: int = 1, attn_chunk: int = 1024,
+                impl: str = "xla"):
+    """One pre-norm residual layer on x [K, B, S, D]: returns (x, MoE
+    aux, or None without an MoE FFN)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
         h = L.attention_fwd(p["mixer"], h, cfg, window=spec.window,
                             chunk=attn_chunk, impl=impl)
     else:
         h = mamba_fwd(p["mixer"], h, cfg, impl=impl)
-    return _ffn(p, x + h, cfg)
+    return _ffn(p, x + h, cfg, spec, n_groups)
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int,
@@ -101,10 +120,8 @@ def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *,
     [K·B, ...]) in place — attention: the K/V at their ring slots; Mamba2:
     the conv tails and the final SSD state.  ``impl="pallas"`` runs the
     mixer's contraction through its kernel (flash attention, the SSD chunk
-    scan), ``"xla"`` through the plain path.  ``n_groups`` is the MoE
-    router's and has no effect here (MoE raises)."""
-    if spec.moe:
-        raise NotImplementedError(_MOE_QUEUED)
+    scan), ``"xla"`` through the plain path.  An MoE FFN routes in
+    ``n_groups`` groups, as in training."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
         h, k, v = L.attention_prefill(p["mixer"], h, cfg, window=spec.window,
@@ -114,49 +131,58 @@ def apply_layer_prefill(p, x, cache, cfg: ModelConfig, spec: LayerSpec, *,
         h, newc = mamba_prefill(p["mixer"], h, cfg, impl=impl)
         for name, t in newc.items():
             cache[name].copy_(t)
-    return _ffn(p, x + h, cfg), cache
+    return _ffn(p, x + h, cfg, spec, n_groups)[0], cache
 
 
 def apply_layer_decode(p, x, cache, index, cfg: ModelConfig,
                        spec: LayerSpec):
-    """One layer on one new token x [K, B, 1, D] against its cache."""
-    if spec.moe:
-        raise NotImplementedError(_MOE_QUEUED)
+    """One layer on one new token x [K, B, 1, D] against its cache (an MoE
+    FFN routes the batch's B tokens as one group)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
         h, cache = L.attention_decode(p["mixer"], h, cache, index, cfg,
                                       window=spec.window)
     else:
         h, cache = mamba_decode(p["mixer"], h, cache, cfg)
-    return _ffn(p, x + h, cfg), cache
+    return _ffn(p, x + h, cfg, spec, 1)[0], cache
 
 
 # ----------------------------------------------------------------------------
 # whole stack (per-client stacks)
 # ----------------------------------------------------------------------------
-def backbone(params, x, cfg: ModelConfig, *, attn_chunk: int = 1024,
-             remat: bool = False, impl: str = "xla"):
-    """x: [K, B, S, D] embeddings -> hidden [K, B, S, D] after the final
-    norm.  ``params["blocks"]`` leaves are [K, n_blocks, ...].  ``remat``:
-    activation-checkpoint each super-block.  ``impl="pallas"``: route the
-    attention/SSD mixers through the kernels (differentiable — the
-    backward recomputes through the plain path)."""
+def backbone(params, x, cfg: ModelConfig, *, n_groups: int = 1,
+             attn_chunk: int = 1024, remat: bool = False, impl: str = "xla"):
+    """x: [K, B, S, D] embeddings -> (hidden [K, B, S, D] after the final
+    norm, MoE aux summed over the layers).  ``params["blocks"]`` leaves are
+    [K, n_blocks, ...].  ``remat``: activation-checkpoint each
+    super-block.  ``impl="pallas"``: route the attention/SSD mixers
+    through the kernels (differentiable — the backward recomputes through
+    the plain path)."""
     pattern = cfg.block_pattern()
 
-    def blk(h, bp):
-        for i, spec in enumerate(pattern):
-            h = apply_layer(bp[f"l{i}"], h, cfg, spec, attn_chunk=attn_chunk,
-                            impl=impl)
-        return h
+    def add(aux, a):
+        return a if aux is None else aux if a is None else aux + a
 
+    def blk(h, bp):
+        aux = None
+        for i, spec in enumerate(pattern):
+            h, a = apply_layer(bp[f"l{i}"], h, cfg, spec, n_groups=n_groups,
+                               attn_chunk=attn_chunk, impl=impl)
+            aux = add(aux, a)
+        return h, aux
+
+    aux = None
     for n in range(cfg.n_blocks):
         bp = tree_map(lambda t: t[:, n], params["blocks"])
         # no torch random bits in a block (dropout is a counter hash), so
         # no RNG state is stashed: a CUDA graph can capture the recompute
-        x = (checkpoint(blk, x, bp, use_reentrant=False,
-                        preserve_rng_state=False) if remat
-             else blk(x, bp))
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, a = (checkpoint(blk, x, bp, use_reentrant=False,
+                           preserve_rng_state=False) if remat
+                else blk(x, bp))
+        aux = add(aux, a)
+    if aux is None:             # no MoE layer: the aux loss is 0
+        aux = x.new_zeros((), dtype=torch.float32)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 # ----------------------------------------------------------------------------
@@ -194,21 +220,22 @@ def unembed(params, h, cfg: ModelConfig):
     return h @ w
 
 
-def _hidden(params, x, cfg: ModelConfig, **bk):
-    """x [B, S, D] -> hidden [B, S, D] after the final norm, through
-    ``backbone`` on K=1 views."""
+def lm_hidden(params, x, cfg: ModelConfig, **bk):
+    """x [B, S, D] -> (hidden [B, S, D] after the final norm, MoE aux),
+    through ``backbone`` on K=1 views."""
     lm = {"blocks": k1(params["blocks"]),
           "final_norm": params["final_norm"][None]}
-    return backbone(lm, x[None], cfg, **bk)[0]
+    h, aux = backbone(lm, x[None], cfg, **bk)
+    return h[0], aux
 
 
 def forward(params, tokens, cfg: ModelConfig, *, n_groups: int = 1,
             attn_chunk: int = 1024, **bk):
-    """tokens [B, S] -> (logits [B, S, V], moe_aux).  The aux loss is 0:
-    MoE layers are not ported (they raise)."""
+    """tokens [B, S] -> (logits [B, S, V], moe_aux)."""
     x = embed_tokens(params, tokens, cfg)
-    h = _hidden(params, x, cfg, attn_chunk=attn_chunk, **bk)
-    return unembed(params, h, cfg), x.new_zeros((), dtype=torch.float32)
+    h, aux = lm_hidden(params, x, cfg, n_groups=n_groups,
+                       attn_chunk=attn_chunk, **bk)
+    return unembed(params, h, cfg), aux
 
 
 def lm_loss(logits, labels, mask=None):
@@ -242,8 +269,10 @@ def loss_fn(params, batch, cfg: ModelConfig, *, n_groups: int = 1,
             loss_chunk: Optional[int] = None, **bk):
     if loss_chunk:
         x = embed_tokens(params, batch["tokens"], cfg)
-        h = _hidden(params, x, cfg, attn_chunk=attn_chunk, **bk)
-        return chunked_lm_loss(params, h, batch["labels"], cfg, loss_chunk)
+        h, aux = lm_hidden(params, x, cfg, n_groups=n_groups,
+                           attn_chunk=attn_chunk, **bk)
+        return (chunked_lm_loss(params, h, batch["labels"], cfg, loss_chunk)
+                + aux_weight * aux)
     logits, aux = forward(params, batch["tokens"], cfg, n_groups=n_groups,
                           attn_chunk=attn_chunk, **bk)
     return lm_loss(logits, batch["labels"], batch.get("mask")) \
@@ -289,8 +318,8 @@ def decode_step(params, cache, token, index, cfg: ModelConfig):
 def prefill(params, tokens, cfg: ModelConfig, *, n_groups: int = 1,
             attn_chunk: int = 1024, **bk):
     """Prefill forward: the LAST position's logits [B, V] (no cache)."""
-    h = _hidden(params, embed_tokens(params, tokens, cfg), cfg,
-                attn_chunk=attn_chunk, **bk)
+    h, _ = lm_hidden(params, embed_tokens(params, tokens, cfg), cfg,
+                     n_groups=n_groups, attn_chunk=attn_chunk, **bk)
     return unembed(params, h[:, -1:, :], cfg)[:, 0, :]
 
 

@@ -54,6 +54,16 @@ from repro_torch.launch import serve
 out = serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
                   "--batch", "2", "--gen-len", "3"])
 assert tuple(out.shape) == (2, 3)
+# the training path: optim, data/tokens, models/moe, models/analysis and
+# launch/train, driven on a reduced MoE arch and the VLM
+for mod in ("optim", "optim.optimizers", "data.tokens", "models.moe",
+            "models.analysis", "launch.train"):
+    assert "repro_torch." + mod in names, mod
+from repro_torch.launch import train
+for arch in ("llama4-scout-17b-a16e", "llava-next-34b"):
+    losses = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--steps", "2", "--batch", "2", "--seq", "32"])
+    assert len(losses) == 2
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(len(names), bad)
@@ -67,7 +77,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.strip().splitlines()[-1].split()[0])
-    assert n_modules >= 76
+    assert n_modules >= 82
 
 
 @pytest.fixture
@@ -938,3 +948,115 @@ def test_ssd_chunk_matches_plain_at_the_mamba2_prefill_shape(cuda):
     yw, sw = ssd_ref.ssd_chunk_ref(x, cum, Bm, Cm)
     torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(st, sw, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training (launch/train.py, launch/steps.py's train half, optim/, MoE)
+# ---------------------------------------------------------------------------
+def test_train_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.launch import train
+    for argv in (["--reduced", "--steps", "1"],
+                 ["--mode", "federated", "--rounds", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train.main(argv)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-370m",
+                                  "whisper-base", "llava-next-34b",
+                                  "llama4-scout-17b-a16e"])
+def test_cpu_train_step_never_launches_a_kernel(arch):
+    """The train step's kernel route on the CPU runs the kernels' plain
+    versions and launches nothing."""
+    from repro_torch.launch import train
+    _reset_all()
+    losses = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--steps", "1", "--batch", "2", "--seq", "32"])
+    assert len(losses) == 1 and math.isfinite(losses[0])
+    assert not any(_all_counts().values())
+
+
+#: the train step's kernels on a card, per arch (reduced, float32)
+TRAIN_KERNELS = {
+    "qwen3-0.6b": ("flash_attention_fwd",),
+    "mamba2-370m": ("ssd_chunk_fwd",),
+    "whisper-base": ("flash_attention_fwd", "fusion_loss_fwd",
+                     "fusion_loss_bwd"),
+    "llava-next-34b": ("flash_attention_fwd", "fusion_loss_fwd",
+                       "fusion_loss_bwd"),
+    "llama4-scout-17b-a16e": ("flash_attention_fwd",),
+    "jamba-v0.1-52b": ("flash_attention_fwd", "ssd_chunk_fwd"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(TRAIN_KERNELS))
+def test_card_train_steps_go_through_the_kernels_and_match_cpu(cuda, arch):
+    """Three reduced train steps on the card (kernel route) against the
+    CPU (plain versions), each from the CPU's params and optimizer state
+    of the step before (a sign flipped by AdamW or Adafactor where a
+    gradient is near 0 can later flip an MoE router): the loss within
+    1e-5 relative, the params within 2.5·lr with 99.9 % of the elements
+    inside 1e-4, the state leaves within 1e-4; the path's kernels
+    launched."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import steps, train
+    cfg = get_config(arch).reduced()
+    if cfg.ssm_state:
+        cfg = dataclasses.replace(cfg, ssm_chunk=8)
+    n_full = steps.param_count(steps.params_shape(get_config(arch)))
+    opt = steps.make_optimizer(cfg, n_full, lr=1e-3)[0]
+    step = steps.make_train_step(cfg, opt, attn_chunk=32)
+    p = steps.init_fn(cfg)(torch.Generator().manual_seed(0))
+    st = opt.init(p)
+    stream, rng = TokenStream(cfg.vocab_size, seed=0), \
+        np.random.default_rng(0)
+    _reset_all()
+    for _ in range(3):
+        b = train.to_device(train.make_batch(cfg, stream, rng, 2, 64),
+                            "cpu")
+        card = lambda t: t.to("cuda")       # noqa: E731
+        pg, sg, lg = step(tree_map(card, p), tree_map(card, st),
+                          tree_map(card, b))
+        p, st, lc = step(p, st, b)
+        assert abs(float(lg) - float(lc)) <= 1e-5 * max(1.0, abs(float(lc)))
+        for a, c in zip(tree_leaves(sg), tree_leaves(st)):
+            torch.testing.assert_close(
+                a.cpu().float(), c.float(), rtol=0,
+                atol=1e-4 * max(1.0, float(c.float().abs().max())))
+        n_out = n = 0
+        for a, c in zip(tree_leaves(pg), tree_leaves(p)):
+            err = (a.cpu() - c).abs()
+            assert float(err.max()) <= 2.5e-3
+            n_out += int((err > 1e-4 * max(1.0, float(c.abs().max())))
+                         .sum())
+            n += err.numel()
+        assert n_out <= 1e-3 * n
+    counts = _all_counts()
+    for k in TRAIN_KERNELS[arch]:
+        assert counts[k] > 0, (k, counts)
+
+
+@pytest.mark.gpu
+def test_moe_decode_graph_captures_once_and_replays_the_eager_step(cuda):
+    """A reduced MoE LM's decode step (the dispatch inside) as one CUDA
+    graph: one capture, nothing read back to the host, and the replays
+    give the eager step's tokens."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import Decoder
+    from repro_torch.models import transformer as T
+    cfg, params = _reduced_lm("llama4-scout-17b-a16e")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+    decs = []
+    for _ in range(2):
+        cache = T.init_cache(cfg, 2, 48, torch.float32)
+        nxt, cache = steps.make_bulk_prefill(cfg)(params, tokens, cache)
+        dec = Decoder(cfg, params, cache, 2, "cuda")
+        dec.set(nxt, 16)
+        decs.append(dec)
+    graph, eager = decs
+    for _ in range(8):
+        assert torch.equal(graph.step(), eager.eager_step())
+    assert graph.graph.captures == 1 and graph.graph.replays == 7

@@ -30,6 +30,7 @@ SSD_SHAPES = [
     ((1, 1, 256, 2, 64, 128), "large"),       # mamba2-370m
     ((1, 1, 256, 2, 64, 16), "large"),        # jamba-v0.1-52b
     ((8, 16, 256, 32, 64, 128), "large"),     # mamba2-370m, 4k tokens
+    ((4, 2, 256, 32, 64, 128), "large"),      # mamba2-370m train, B=4 S=512
     ((1, 1, 32, 64, 64, 16), "large"),        # heads too many for one block
     ((40, 2, 16, 3, 6, 5), "small"),          # hp, N not multiples of 4
     ((2, 2, 8, 8, 8, 16), "small"),           # few chunks of 8: small
@@ -106,6 +107,12 @@ ATTN_SHAPES = [
     ((1, 512, 2, 1, 128, torch.float32), "long"),
     ((1, 64, 4, 4, 64, torch.bfloat16), "long"),          # one key tile
     ((1, 4096, 16, 8, 256, torch.bfloat16), "generic"),   # gemma3-12b
+    # the LM train steps' shapes (chip_smoke.py's [train] runs)
+    ((8, 256, 16, 8, 128, torch.bfloat16), "long"),       # qwen3-0.6b
+    ((8, 256, 8, 8, 64, torch.bfloat16), "long"),         # whisper-base
+    ((4, 256, 56, 8, 128, torch.bfloat16), "long"),       # llava-next-34b
+    ((4, 256, 40, 8, 128, torch.bfloat16), "long"),       # llama4-scout
+    ((4, 64, 40, 8, 128, torch.bfloat16), "long"),        # its prefill
     ((1, 4096, 64, 8, 112, torch.bfloat16), "generic"),   # kimi-k2
     ((2, 200, 4, 4, 8, torch.float32), "generic"),
 ]
@@ -221,6 +228,11 @@ FUSION_SHAPES = [
     ((64, 100, 37, 1, (0,), F16), "rows"),
     ((2, 8, 5000, 2, (0, 2), F16), "group/256"),
     ((4096, 128, 151936, 4, (0, 0, 0, 128), BF16), "group/512"),
+    # the LM train steps' losses, K=1 with a compact head: whisper-base's
+    # audio head and llava-next-34b's vision head, whole and chunked
+    ((1, 2048, 51865, 2, (256, 0), BF16), "group/256"),
+    ((1, 1024, 64000, 2, (0, 256), BF16), "group/256"),
+    ((1, 512, 64000, 2, (0, 128), BF16), "group/256"),
 ]
 
 
