@@ -99,9 +99,27 @@ Phases, each of which fails the run when it fails:
    layer (the MoE in the captured decode graph, 0 recaptures); every
    kernel against its plain version at the train steps' operands (timed
    in phase 4, their launches the JSON line's ``"train"`` path);
+7. ``[mesh]``: the multi-device layer — ``from_store`` at
+   ``benchmarks/population_scale.py``'s largest configuration (iemocap,
+   K=100000, Random J=10, 2 samples a client) and JCSBA capped at a
+   cohort of 10 at K=5000, each a 2-point V sweep of 3 rounds on one
+   device (graph replays; ms a scenario-round, store and peak GiB); a
+   1-rank NCCL group capturing the client-sharded round with its
+   collectives (replays against the eager body); then 2 ranks of this
+   script on the one card over gloo (``--mesh-rank``): the same sweeps on
+   a 1x2 ("scenario", "clients") mesh (each rank holding half the store;
+   eager body) held against the one-device sweeps, B_min on K/2 rows and
+   each solve's reassembled B_min and ok against the K-row kernel's; the
+   12-row zoo on a 2x1 ("scenario",) mesh, each rank capturing its own
+   round pair, held against the one-device zoo; full-width qwen3-0.6b
+   ``ContinuousServer(mesh=)`` against the unsharded server across a hot
+   swap (the references run after the counts are read); a failed rank
+   fails the phase; the kernels against their plain versions at the
+   operands these runs recorded — fusion at the population cohort, B_min
+   on K and K/2 rows, the population kernel at K=5000 (timed in phase 4);
 4. time each kernel (CUDA events, after warm-up) beside its plain version,
    its bound and, where one PyTorch call computes the same function, that
-   call, at every shape of phases 2 and 3b; a ``[floor]`` line gives the
+   call, at every shape of phases 2, 3b and 7; a ``[floor]`` line gives the
    device time of a one-element ``add_``, the launch floor.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, without CUDA.
@@ -111,6 +129,7 @@ per-kernel JSON, and before that the card's name and power limit.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -291,6 +310,21 @@ TOL_TRAIN_LOSS_BF16, TOL_TRAIN_GRAD_BF16, TOL_TRAIN_LEAF_BF16 = \
     1e-3, 3e-2, 0.25
 #: the MoE serve at full width: (arch, layers, batch, prompt, generated)
 MOE_SERVE = ("llama4-scout-17b-a16e", 1, 4, 64, 16)
+#: [mesh]: benchmarks/population_scale.py's largest configuration
+#: (K=100000, Random, J=10) and its --mesh-smoke default (K=5000, JCSBA
+#: capped at a cohort of 10), iemocap, 2 samples a client, 3 rounds, V
+#: [0.1, 1.0]; on one device, then on 2 ranks of the one card
+POP_RUNS = (("random", 100000), ("jcsba", 5000))
+POP_DATASET, POP_J, POP_N, POP_ROUNDS = "iemocap", 10, 2, 3
+POP_V = (0.1, 1.0)
+MESH_RANKS, MESH_TIMEOUT = 2, 600
+MESH_DIR = os.path.join(ROOT, "build", "mesh")
+MESH_KERNELS = ("fusion_loss_fwd", "fusion_loss_bwd") + SOLVER_KERNELS
+#: a sharded sweep against the one-device sweep: the JAX package's own
+#: tolerance (tests/test_sharded_sweep.py); graph replays against the
+#: eager body: the fused tests' (tests/test_torch_isolation.py)
+TOL_SHARD = dict(rtol=2e-6, atol=1e-7)
+TOL_GRAPH = 1e-6
 
 
 def gpu_line() -> str:
@@ -2572,7 +2606,7 @@ def solver_phase(torch, captured):
         for P in (20, 24, 4, 1):
             i, A, bm, ok, want_B, w = heaviest[P]
             rows.append((f"main-path K={K0}{tag} P={P} (launch {i})", d, A,
-                         bm, ok, want_B, w))
+                         bm, ok, want_B, w, hp))
     for K in (100, 1000):
         d = torchsolver.to_device(synthetic_round(K, K), DEVICE)
         bm, ok = bmin_check(torch, f"K={K}", d, hp,
@@ -2585,7 +2619,7 @@ def solver_phase(torch, captured):
                                  errs["jcsba_population_kernel"])
             print(f"[solver] K={K} P={P}: {nfeas} of {P} rows feasible")
             rows.append((f"K={K} P={P}", d, A, bm, ok, False,
-                         solver_work(torch, d, A, bm, ok, hp)))
+                         solver_work(torch, d, A, bm, ok, hp), hp))
     # one whole solve each way on the captured draws
     for tag, d in (("", data), (" Q>0", data_q)):
         t0 = time.perf_counter()
@@ -2610,35 +2644,49 @@ def solver_phase(torch, captured):
     return rows, hp, {k: max(v) for k, v in errs.items()}
 
 
-def solver_timing_phase(torch, rows, hp):
+SOLVER_LIB = "none: no single PyTorch call computes this function"
+
+
+def bmin_row(torch, label, d, hp, args=None):
+    """A [time] row of the B_min kernel on the round data ``d``."""
+    from repro_torch.kernels.jcsba_solver import ops, ref
+    K = d["gamma"].shape[0]
+    bm = (d["gamma"], d["h"], d["tau_rem"], d["B_max"], d["p_tx"], d["N0"],
+          hp)
+    return time_row(torch, "jcsba_bmin_kernel", label, f"K={K}",
+                    lambda: ops._launch_bmin(*bm, args),
+                    lambda: ref.bmin(*bm), None, SOLVER_LIB,
+                    bmin_work(K, hp))
+
+
+def solver_timing_phase(torch, rows, bmin_rows=()):
     """[time] rows for the two solver kernels at every solver case: the
     population kernel as the search launches it (the solve's one
-    ``SolverArgs``; B only for the winner's row)."""
+    ``SolverArgs``; B only for the winner's row), B_min on the round data
+    of each K's first case, and on the first (label, round data, hp) of
+    each other K in ``bmin_rows``, such as a rank's slice of the
+    clients."""
     from repro_torch.kernels.jcsba_solver import ops, ref
     out = {k: [] for k in SOLVER_KERNELS}
-    lib_txt = "none: no single PyTorch call computes this function"
     seen_K = set()
-    for label, d, A, bm, ok, want_B, work_ in rows:
+    for label, d, A, bm, ok, want_B, work_, hp in rows:
         K = A.shape[1]
         args = ops.launch_args(d, hp)
         if K not in seen_K:
             seen_K.add(K)
-            out["jcsba_bmin_kernel"].append(time_row(
-                torch, "jcsba_bmin_kernel", label.split(" P=")[0],
-                f"K={K}",
-                lambda: ops._launch_bmin(d["gamma"], d["h"], d["tau_rem"],
-                                         d["B_max"], d["p_tx"], d["N0"], hp,
-                                         args),
-                lambda: ref.bmin(d["gamma"], d["h"], d["tau_rem"],
-                                 d["B_max"], d["p_tx"], d["N0"], hp),
-                None, lib_txt, bmin_work(K, hp)))
+            out["jcsba_bmin_kernel"].append(
+                bmin_row(torch, label.split(" P=")[0], d, hp, args))
         out["jcsba_population_kernel"].append(time_row(
             torch, "jcsba_population_kernel", label,
             f"P={A.shape[0]} K={K} M={d['zeta2'].shape[0]}"
             + (" with B" if want_B else ""),
             lambda: ops._launch_population(A, bm, ok, d, hp, want_B, args),
             lambda: ref.population_objective(A, bm, ok, d, hp, want_B),
-            None, lib_txt, work_, plain_iters=3))
+            None, SOLVER_LIB, work_, plain_iters=3))
+    for label, d, hp in bmin_rows:
+        if d["gamma"].shape[0] not in seen_K:
+            seen_K.add(d["gamma"].shape[0])
+            out["jcsba_bmin_kernel"].append(bmin_row(torch, label, d, hp))
     return out
 
 
@@ -2794,6 +2842,590 @@ def backbone_timing_phase(torch, attn, ssd):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the multi-device layer — population-scale fused rounds on one
+# device, the same sweeps client-sharded over two ranks of the one card
+# (gloo), the zoo scenario-sharded, a 1-rank NCCL group capturing the
+# client-sharded round, and the continuous server on a mesh
+# ---------------------------------------------------------------------------
+def population_params(K):
+    """``benchmarks/population_scale.py``'s wireless parameters: the
+    paper's 1 MHz a client, E_add = 2e-4."""
+    from repro_torch.wireless.params import WirelessParams
+    return WirelessParams(K=K, B_max=1e6 * K, E_add=2e-4)
+
+
+def population_store(K):
+    """``benchmarks/population_scale.py:build_population`` in the port: a
+    numpy ``synthetic_population`` (ω = 0.2, seed 0) with its Eqs. 15-18
+    cost vectors."""
+    from repro_torch.data.partition import synthetic_population
+    from repro_torch.data.scenarios import DATASET_SHAPES
+    from repro_torch.wireless.cost import population_costs
+    from repro_torch.wireless.params import MODALITY_PROFILES
+    shapes, n_classes = DATASET_SHAPES[POP_DATASET]
+    store = synthetic_population(K, POP_N, shapes, n_classes, 0.2, seed=0)
+    cost = population_costs(store.has_modality, store.modalities,
+                            store.sizes, MODALITY_PROFILES[POP_DATASET],
+                            population_params(K))
+    return dataclasses.replace(
+        store, gamma_bits=cost.gamma_bits.astype(np.float32),
+        tau_cmp=cost.tau_cmp.astype(np.float32),
+        e_cmp=cost.e_cmp.astype(np.float32))
+
+
+def save_store(store, path):
+    """A numpy store as one ``.npy`` a leaf under ``path``, for the ranks
+    to map (``load_store``)."""
+    import pickle
+    os.makedirs(path, exist_ok=True)
+    names = []
+
+    def put(x):
+        names.append(f"{len(names)}.npy")
+        np.save(os.path.join(path, names[-1]), x)
+        return names[-1]
+    with open(os.path.join(path, "store.pkl"), "wb") as f:
+        pickle.dump(store._map(put), f)
+
+
+def load_store(path):
+    import pickle
+    with open(os.path.join(path, "store.pkl"), "rb") as f:
+        names = pickle.load(f)
+    # copy-on-write maps: writable arrays, read from disk as touched
+    return names._map(lambda n: np.load(os.path.join(path, n),
+                                        mmap_mode="c"))
+
+
+def population_engine(name, K, store, mesh=None):
+    """``from_store`` at the population benchmark's set-up: Random with
+    J=10, or JCSBA capped at a cohort of 10; the kernels on the path."""
+    from repro_torch.fl.client import make_adapter
+    from repro_torch.fl.fused_round import FusedRoundEngine
+    from repro_torch.wireless.policies import JCSBAPolicy, RandomPolicy
+    pol = (JCSBAPolicy(K, max_cohort=POP_J) if name == "jcsba"
+           else RandomPolicy(K, POP_J))
+    return FusedRoundEngine.from_store(
+        store, population_params(K), pol,
+        make_adapter(POP_DATASET, "lstm-cnn", loss_backend="pallas",
+                     use_kernels=True), V=1.0, seed=0, device=DEVICE,
+        mesh=mesh)
+
+
+def population_xs(eng, K, rounds=POP_ROUNDS):
+    from repro_torch.fl.fused_round import draw_population_xs
+    from repro_torch.wireless.channel import Channel
+    rng = np.random.default_rng(1)
+    return draw_population_xs(Channel(population_params(K), rng), rng, K,
+                              rounds, policy=eng.policy, device=DEVICE)
+
+
+def _gib(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors) / 2 ** 30
+
+
+def _cpu(out):
+    from repro_torch.core.trees import tree_map
+    return tuple(tree_map(lambda x: x.detach().cpu(), t) for t in out)
+
+
+def sweep_err(torch, got, ref):
+    """(schedules equal, max |err| over the float leaves, every leaf equal
+    or within ``TOL_SHARD``) of a sweep's (carries, auxs) against a
+    reference's, both on the host."""
+    from repro_torch.core.trees import tree_leaves
+    same = all(torch.equal(g, r) for g, r in
+               ((got[1].a, ref[1].a), (got[1].ok, ref[1].ok)))
+    err, close = 0.0, True
+    for g, r in zip(tree_leaves(got[0]) + tree_leaves(got[1]),
+                    tree_leaves(ref[0]) + tree_leaves(ref[1])):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            return False, math.inf, False
+        if not g.dtype.is_floating_point:
+            close &= torch.equal(g, r)
+            continue
+        fin = torch.isfinite(r)
+        if fin.any():
+            err = max(err, float((g[fin] - r[fin]).abs().max()))
+        close &= torch.equal(g, r) or torch.allclose(g, r, equal_nan=True,
+                                                     **TOL_SHARD)
+    return same, err, close
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def population_phase(torch, counters, name, K, counts, found):
+    """One device: the population sweep (2 V x 3 rounds), its graph
+    captured by a 1-round sweep first, then timed with the counters set to
+    0 just before it; then one eager round of the same body, whose kernel
+    operands (the fusion loss's, the solve's) go into ``found``; the store
+    handed to the ranks, the result kept as their reference."""
+    from repro_torch.core.trees import tree_map
+    from repro_torch.fl.fused_round import tree_row
+    from repro_torch.kernels.fusion_loss import ops as fl_ops
+    reset, read = counters
+    t0 = time.perf_counter()
+    store = population_store(K)
+    built = time.perf_counter() - t0
+    save_store(store, os.path.join(MESH_DIR, f"{name}_store"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = population_engine(name, K, store)
+    del store
+    carry, xs = eng.fresh_carry(), population_xs(eng, K)
+    eng.scan_v_grid(POP_V, carry, tree_map(lambda x: x[:1], xs), mesh=None)
+    torch.cuda.synchronize()
+    reset()
+    since = dict(eng.replays)
+    t0 = time.perf_counter()
+    out = eng.scan_v_grid(POP_V, carry, xs, mesh=None)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = graph_counts(eng, since)
+    _add(launched, read())
+    _add(counts, launched)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ref = _cpu(out)
+    torch.save(ref, os.path.join(MESH_DIR, f"{name}_single.pt"))
+    label = f"mesh one device {name} K={K}"
+    fusion, solve = (Capture(torch, fl_ops, "fusion_loss_bwd", label),
+                     SolverCapture())
+    with fusion, solve:
+        eng.step_eager(eng.fresh_carry(), tree_row(xs, 0))
+    torch.cuda.synchronize()
+    for rec in fusion.seen.values():
+        found.setdefault("fusion", {})[
+            f"{label} " + "x".join(map(str, rec["args"][1].shape))] = rec
+    if solve.seen is not None:
+        found["solve"] = (label, solve.seen)
+    n = len(POP_V) * POP_ROUNDS
+    sched = float(ref[1].ok.sum(-1).float().mean())
+    info = dict(ms=wall / n, store=_gib(eng._store.leaves()),
+                peak=peak, capture=sum(eng.capture_seconds.values()))
+    print(f"[mesh] one device: {POP_DATASET} K={K} J={POP_J} {name} "
+          f"n={POP_N} a client, V {list(POP_V)} x {POP_ROUNDS} rounds "
+          f"(eval off) in {wall:.3f} ms = {info['ms']:.3f} ms a "
+          f"scenario-round (graph replays; capture "
+          f"{info['capture']:.3f} s; store built in {built:.3f} s on the "
+          f"host); store {info['store']:.4f} GiB, peak {peak:.4f} GiB "
+          f"above the phase's start; {sched:g} scheduled a round; "
+          f"launches {launched}")
+    if not all(bool(torch.isfinite(x).all()) for x in _leaves(ref[0].params)):
+        raise AssertionError(f"mesh: population {name} K={K}: a non-finite "
+                             f"param")
+    del eng, out
+    torch.cuda.empty_cache()
+    return info
+
+
+def _leaves(tree):
+    from repro_torch.core.trees import tree_leaves
+    return tree_leaves(tree)
+
+
+def nccl_capture_phase(torch, counts):
+    """A 1-rank NCCL group: the JCSBA population engine built on a 1×1
+    ("scenario", "clients") mesh, whose round — the channel reassembly,
+    the shard's B_min and the cohort gather, all ``all_reduce``s — is
+    captured with its collectives in the graph (after the eager warm-up
+    made the communicator).  NCCL refuses two ranks on one card, so this
+    is the only capture of collectives a one-card machine can run.
+    Replays against the eager body, round by round; the launches counted
+    are the replays' (captured launches x replays)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core.trees import tree_map
+    from repro_torch.fl.fused_round import tree_row
+    name, K = POP_RUNS[-1]
+    init = os.path.join(MESH_DIR, "pg_nccl")
+    if os.path.exists(init):
+        os.remove(init)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("scenario", "clients"))
+        eng = population_engine(name, K, load_store(
+            os.path.join(MESH_DIR, f"{name}_store")), mesh=mesh)
+        xs = population_xs(eng, K)
+        eager, ref = eng.fresh_carry(), []
+        for i in range(POP_ROUNDS):
+            eager, ae = eng.step_eager(eager, tree_row(xs, i))
+            ref.append((tree_map(torch.clone, eager.params), ae.ok, ae.a))
+        graph = eng.fresh_carry()
+        same, err = True, 0.0
+        for i, (params, ok, a) in enumerate(ref):
+            graph, ag = eng.step(graph, tree_row(xs, i))
+            same &= bool(torch.equal(ok, ag.ok) and torch.equal(a, ag.a))
+            err = max(err, max(float((x - y).abs().max()) for x, y in zip(
+                _leaves(params), _leaves(graph.params))))
+        torch.cuda.synchronize()
+        launched = graph_counts(eng)
+        _add(counts, launched)
+        print(f"[mesh] 1-rank NCCL group (the only capture of collectives "
+              f"a one-card machine runs: NCCL takes one rank a card), "
+              f"{name} K={K} on a 1x1 ('scenario', 'clients') mesh: round "
+              f"body {eng.round_body}, captures {eng.capture_count}, "
+              f"{POP_ROUNDS} replays vs the eager body: schedules "
+              f"{'identical' if same else 'DIFFER'}, params max|err| "
+              f"{err:.3e} (atol {TOL_GRAPH:g}); launches a graph "
+              f"{ {str(g): v for g, v in eng.graph_launches.items()} }, "
+              f"the replays' {launched}")
+        if eng.round_body != "captured" or eng.capture_count != 1 or \
+                not same or err > TOL_GRAPH:
+            raise AssertionError("mesh: the NCCL-captured client-sharded "
+                                 "round differs from its eager body")
+        # the graph holds NCCL kernels: free it while the group lives
+        del eng, graph, eager, ref
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+def launch_mesh_ranks():
+    """``MESH_RANKS`` processes of this script on one gloo group
+    (``repro_torch.launch.ranks``), each running ``mesh_rank``; every one
+    is stopped before this returns, and a rank that fails fails the
+    phase.  Returns each rank's JSON summary; its other lines are echoed."""
+    from repro_torch.launch.ranks import Ranks
+    init = os.path.join(MESH_DIR, "pg_gloo")
+    if os.path.exists(init):
+        os.remove(init)
+    t0 = time.perf_counter()
+    texts = Ranks([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                   init], MESH_RANKS, MESH_DIR, MESH_TIMEOUT).outputs()
+    outs = []
+    for r, text in enumerate(texts):
+        lines = text.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"  [rank {r}] {line}")
+        outs.append(json.loads(lines[-1]))
+    print(f"[mesh] {MESH_RANKS} ranks on the one card (gloo): "
+          f"{time.perf_counter() - t0:.3f} s, start-up included")
+    return outs
+
+
+def mesh_kernel_phase(torch, ops, ref, found):
+    """The kernels against their plain versions at the operands of the
+    one-device eager rounds: the fusion loss at the population cohort,
+    B_min on the K=5000 round and on each rank's slice of it (the rows a
+    rank's B_min launch takes), the population kernel at the first launch
+    of each P of that round's solve.  Returns (fusion cases, the first of
+    each shape; population rows; B_min rows; max abs error per kernel)."""
+    errs = {k: [] for k in ("fusion_loss_fwd", "fusion_loss_bwd",
+                            "fusion_loss_reduce") + SOLVER_KERNELS}
+    cases = {}
+    for label, rec in found["fusion"].items():
+        lg, lab, av, df, dm = rec["args"][:5]
+        K, T = lab.shape
+        c = dict(logits=list(lg), labels=lab, avail=av, d_fused=df,
+                 d_modal=dm, seg=tuple(rec["args"][7]),
+                 shape=(K, T, lg[0].shape[-1], len(lg)))
+        fusion_check(torch, ops, ref, label, c, errs)
+        if all(c["shape"] != o["shape"] for o in cases.values()):
+            cases[label] = c
+    label, (data, _, _, hp, launches) = found["solve"]
+    K = data["gamma"].shape[0]
+    bmin_check(torch, f"{label} B_min", data, hp, errs["jcsba_bmin_kernel"])
+    n = K // MESH_RANKS
+    bmin_rows = []
+    for r in range(MESH_RANKS):
+        d = dict(data, **{k: data[k][r * n:(r + 1) * n]
+                          for k in ("gamma", "h", "tau_rem")})
+        bmin_rows.append((f"{label} B_min, rank {r}'s {n} rows", d, hp))
+        bmin_check(torch, bmin_rows[-1][0], d, hp,
+                   errs["jcsba_bmin_kernel"])
+    rows = []
+    for i, (A, bm, ok, want_B) in enumerate(launches):
+        P = A.shape[0]
+        if any(r[2].shape[0] == P for r in rows):
+            continue
+        rows.append((f"{label} P={P} (launch {i})", data, A, bm, ok, want_B,
+                     solver_work(torch, data, A, bm, ok, hp), hp))
+        nfeas = solver_check(torch, rows[-1][0], data, A, bm, ok, hp,
+                             errs["jcsba_population_kernel"])
+        print(f"[solver] {rows[-1][0]}: {nfeas} of {P} rows feasible")
+    return cases, rows, bmin_rows, {k: max(v) for k, v in errs.items()
+                                    if v}
+
+
+def mesh_phase(torch, counters, ops, ref):
+    """Phase 7.  Returns (the launches of the phase's runs of the path —
+    the one-device population sweeps (captured x replays), the
+    NCCL-captured rounds' replays, and each rank's sweeps, zoo (captured x
+    replays) and mesh server —, then ``mesh_kernel_phase``'s fusion cases,
+    population rows, B_min rows and max errors)."""
+    t_start = time.perf_counter()
+    os.makedirs(MESH_DIR, exist_ok=True)
+    counts, found = {}, {}
+    single = {name: population_phase(torch, counters, name, K, counts, found)
+              for name, K in POP_RUNS}
+    nccl_capture_phase(torch, counts)
+    outs = launch_mesh_ranks()
+    for name, K in POP_RUNS:
+        s = single[name]
+        for o in outs:
+            r = o[name]
+            print(f"[mesh] rank {o['rank']} of a 1x2 ('scenario', "
+                  f"'clients') mesh, {name} K={K}: round body "
+                  f"{r['round_body']}, {r['store_rows']} client rows, "
+                  f"store {r['store']:.4f} GiB ({r['store'] / s['store']:.3f}"
+                  f" of one device's), peak {r['peak']:.4f} GiB "
+                  f"({r['peak'] / s['peak']:.3f}); {r['ms']:.3f} ms a "
+                  f"scenario-round (one device: {s['ms']:.3f}); vs the "
+                  f"one-device sweep: schedules "
+                  f"{'identical' if r['same'] else 'DIFFER'}, max|err| "
+                  f"{r['err']:.3e} (rtol {TOL_SHARD['rtol']:g}, atol "
+                  f"{TOL_SHARD['atol']:g}) {'ok' if r['close'] else 'FAIL'};"
+                  f" B_min launches {r['bmin_launches']} on rows "
+                  f"{r['bmin_rows']}")
+            if not (r["same"] and r["close"]):
+                raise AssertionError(f"mesh: rank {o['rank']} {name} sweep "
+                                     f"differs from one device's")
+            if name != "jcsba":
+                continue
+            n = len(POP_V) * POP_ROUNDS
+            print(f"[mesh] rank {o['rank']} {name} K={K}: each of the "
+                  f"{r['solves']} solves' B_min and ok (reassembled from "
+                  f"the ranks' {K // MESH_RANKS}-row slices) and h "
+                  f"(reassembled) against the B_min kernel on all {K} "
+                  f"clients of the same round, one device: "
+                  f"{'bit for bit' if r['bmin_same'] else 'DIFFER'}; "
+                  f"clients with ok a solve {r['bmin_ok']}")
+            if not r["bmin_launches"] or r["bmin_rows"] != [K // MESH_RANKS] \
+                    or r["solves"] != n or not r["bmin_same"]:
+                raise AssertionError(f"mesh: B_min not on K/2 rows, or its "
+                                     f"reassembly differs from one "
+                                     f"device's: {r}")
+    for o in outs:
+        z, v = o["zoo"], o["serve"]
+        print(f"[mesh] rank {o['rank']} of a 2x1 ('scenario',) mesh: the "
+              f"{z['rows']}-row zoo x {ZOO_ROUNDS} rounds, its block of "
+              f"{z['block']} rows through its own captured round pair "
+              f"(captures {z['captures']}): {z['wall']:.3f} ms = "
+              f"{z['ms']:.3f} ms a scenario-round of the grid (PR 17 one "
+              f"device, call 6: 17.987)"
+              + ("" if z["same"] is None else
+                 f"; vs the one-device zoo: schedules "
+                 f"{'identical' if z['same'] else 'DIFFER'}, max|err| "
+                 f"{z['err']:.3e} {'ok' if z['close'] else 'FAIL'}"))
+        print(f"[mesh] rank {o['rank']}: ContinuousServer(mesh=) "
+              f"qwen3-0.6b full width bf16, B={CONT_B}, {v['steps']} steps "
+              f"with a hot swap after {v['steps'] // 2}: tokens "
+              f"{'identical' if v['same'] else 'DIFFER'} to the unsharded "
+              f"server's (run after the counts were read); placements "
+              f"{v['placements']}; swap {v['swap_ms']:.3f} ms")
+        if z["same"] is False or z["close"] is False or not v["same"]:
+            raise AssertionError(f"mesh: rank {o['rank']}: the zoo or the "
+                                 f"server differs from one device's")
+        _add(counts, o["launches"])
+    if outs[0]["serve"]["tokens"] != outs[1]["serve"]["tokens"]:
+        raise AssertionError("mesh: the ranks' servers disagree")
+    for k in MESH_KERNELS:
+        if not counts.get(k):
+            raise AssertionError(f"mesh: {k} was not launched")
+    print(f"[mesh] launches {counts}; phase "
+          f"{time.perf_counter() - t_start:.3f} s")
+    return (counts,) + mesh_kernel_phase(torch, ops, ref, found)
+
+
+def mesh_rank(rank, world, init):
+    """One rank of ``launch_mesh_ranks``: the two population sweeps on a
+    1×2 ("scenario", "clients") mesh, the zoo on a 2×1 ("scenario",) mesh,
+    the continuous server on a mesh; prints its summary as JSON, last."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts as read
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fusion_loss import ops
+    from repro_torch.kernels.jcsba_solver import ops as js_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.mesh import make_population_mesh, make_sweep_mesh
+
+    def reset():
+        for m in (ops, fa_ops, ssd_ops, js_ops):
+            m.reset_launch_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores (one share each) and the one card
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        out = {"rank": rank, "launches": {}}
+        pop = make_population_mesh(n_scenario=1)
+        for name, K in POP_RUNS:
+            out[name] = rank_population(torch, (reset, read), name, K, pop,
+                                        out["launches"])
+        sweep = make_sweep_mesh()
+        out["zoo"], params, feats = rank_zoo(torch, (reset, read), sweep,
+                                             rank, out["launches"])
+        out["serve"] = rank_serve(torch, (reset, read), sweep, *params,
+                                  feats, out["launches"])
+        print(json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def rank_population(torch, counters, name, K, mesh, counts):
+    """This rank's block of the population sweep: an engine holding K/2
+    clients, a 1-round warm-up sweep, then the timed sweep with the
+    counters set to 0 just before it (gloo: the body runs eagerly), the
+    rows of each B_min launch and each solve's round data recorded on the
+    way.  After the counts are read, each solve's reassembled B_min, ok
+    and h are held against the B_min kernel on the whole round, as one
+    device runs it."""
+    from repro_torch.core.trees import tree_map
+    from repro_torch.kernels.jcsba_solver import ops as js_ops
+    from repro_torch.wireless import policies
+    reset, read = counters
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = population_engine(name, K, load_store(
+        os.path.join(MESH_DIR, f"{name}_store")), mesh=mesh)
+    carry, xs = eng.fresh_carry(), population_xs(eng, K)
+    eng.scan_v_grid(POP_V, carry, tree_map(lambda x: x[:1], xs), mesh=mesh)
+    torch.cuda.synchronize()
+    rows, solves = set(), []
+    bmin0, solve0 = js_ops._launch_bmin, policies.solve_core
+
+    def bmin_spy(gamma, *a, **kw):
+        rows.add(int(gamma.shape[0]))
+        return bmin0(gamma, *a, **kw)
+
+    def solve_spy(data, *a):
+        solves.append(dict(data))
+        return solve0(data, *a)
+    js_ops._launch_bmin, policies.solve_core = bmin_spy, solve_spy
+    reset()
+    try:
+        t0 = time.perf_counter()
+        out = eng.scan_v_grid(POP_V, carry, xs, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        js_ops._launch_bmin, policies.solve_core = bmin0, solve0
+    launched = read()
+    _add(counts, launched)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    same, err, close = sweep_err(torch, _cpu(out), torch.load(
+        os.path.join(MESH_DIR, f"{name}_single.pt"), weights_only=False))
+    bmin_same = None if not solves else True
+    for i, d in enumerate(solves):
+        h1 = xs.h[i % POP_ROUNDS]
+        bm1, ok1 = js_ops.bmin(d["gamma"], h1, d["tau_rem"], d["B_max"],
+                               d["p_tx"], d["N0"], eng.policy.hp)
+        bmin_same &= bool(torch.equal(d["h"], h1)
+                          and torch.equal(d["bmin"], bm1)
+                          and torch.equal(d["bmin_ok"], ok1))
+    res = dict(ms=wall / (len(POP_V) * POP_ROUNDS),
+               store=_gib(eng._store.leaves()), peak=peak,
+               store_rows=int(eng._store.labels.shape[0]),
+               round_body=eng.round_body, same=same, err=err, close=close,
+               bmin_launches=launched.get("jcsba_bmin_kernel", 0),
+               bmin_rows=sorted(rows), solves=len(solves),
+               bmin_same=bmin_same,
+               bmin_ok=[int(d["bmin_ok"].sum()) for d in solves])
+    del eng, out, solves
+    torch.cuda.empty_cache()
+    return res
+
+
+def rank_zoo(torch, counters, mesh, rank, counts):
+    """The 12-row zoo, this rank's block of rows: a 2-row sweep on the
+    mesh captures each rank's round pair, then the whole zoo is timed with
+    the counters set to 0 just before it; rank 0 also runs the one-device
+    zoo (PR 17's path) as the reference, after the counts are read.
+    Returns (summary, the engine's initial and row 0's final params, the
+    zoo's first test features) for the server."""
+    from repro_torch.core.trees import tree_map
+    reset, read = counters
+    specs = zoo_specs()
+    grid, eng, xs, kw = zoo_engine(specs, ZOO_ROUNDS)
+    S = grid.n
+    eng.scan_scenario_grid(
+        {k: v[:MESH_RANKS] for k, v in grid.overrides.items()},
+        eng.fresh_carry(), tree_map(lambda x: x[:2], xs),
+        stores=grid.stores.row(slice(0, MESH_RANKS)),
+        test_sets=({m: x[:MESH_RANKS] for m, x in grid.test_features.items()},
+                   grid.test_labels[:MESH_RANKS]), mesh=mesh)
+    torch.cuda.synchronize()
+    reset()
+    since = dict(eng.replays)
+    t0 = time.perf_counter()
+    out = eng.scan_scenario_grid(grid.overrides, eng.fresh_carry(), xs,
+                                 mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = graph_counts(eng, since)
+    _add(launched, read())
+    _add(counts, launched)
+    res = dict(rows=S, block=-(-S // MESH_RANKS), wall=wall,
+               ms=wall / (S * ZOO_ROUNDS), captures=eng.capture_count,
+               same=None, err=None, close=None)
+    if rank == 0:
+        ref = eng.scan_scenario_grid(grid.overrides, eng.fresh_carry(), xs,
+                                     mesh=None, **kw)
+        res["same"], res["err"], res["close"] = sweep_err(
+            torch, _cpu(out), _cpu(ref))
+    feats = {m: torch.as_tensor(x[0, :CONT_B])
+             for m, x in sorted(grid.test_features.items())}
+    return res, (eng._global_params0, tree_map(lambda x: x[0].clone(),
+                                              out[0].params)), feats
+
+
+def rank_serve(torch, counters, mesh, init, new, feats, counts):
+    """Full-width qwen3-0.6b (bf16) served on the mesh on this rank:
+    tokens step by step from the ``init`` fusion params, a hot swap to
+    ``new`` halfway, the counters set to 0 just before the server is
+    built and read just after its last step (the bulk prefill launches the
+    attention kernel); then the same run of the server without a mesh,
+    whose tokens the mesh server's must equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.continuous import ContinuousServer
+    reset, read = counters
+    cfg = get_config("qwen3-0.6b")
+    lm = steps.init_fn(cfg)(torch.Generator(DEVICE).manual_seed(0))
+    max_len = CONT_PROMPT + 2 * GRAPH_STEPS + 8
+    prompts = np.random.default_rng(0).integers(0, 1000,
+                                                (CONT_B, CONT_PROMPT))
+
+    def serve(on):
+        server = ContinuousServer(cfg, lm, init, feats, max_len=max_len,
+                                  mesh=on, device=DEVICE)
+        server.start(prompts)
+        tokens, swap_ms = [], 0.0
+        for step in range(2 * GRAPH_STEPS):
+            if step == GRAPH_STEPS:
+                swap_ms = server.swap(new) * 1e3
+            server.decode_step()
+            tokens.append(server.token.reshape(-1).tolist())
+        return server, tokens, swap_ms
+    reset()
+    server, tokens, swap_ms = serve(mesh)
+    _add(counts, read())
+    placements = sorted({type(p).__name__ for ps in
+                         _leaves(server.placements) for p in ps})
+    del server
+    torch.cuda.empty_cache()
+    plain = serve(None)[1]
+    del lm
+    torch.cuda.empty_cache()
+    return dict(steps=2 * GRAPH_STEPS, same=tokens == plain, tokens=tokens,
+                placements=placements, swap_ms=swap_ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2941,11 +3573,23 @@ def main() -> int:
     attn += t_attn
     ssd += t_ssd
 
+    # phase 7: the multi-device layer — population-scale sweeps on one
+    # device and client-sharded on two ranks of the card, the zoo
+    # scenario-sharded, the NCCL-captured client round, the server on a
+    # mesh (counters set to 0 just before each run, the ranks' summed);
+    # the kernels at the operands these runs recorded (timed with the
+    # others)
+    by_path["mesh"], m_cases, m_rows, m_bmin, m_err = mesh_phase(
+        torch, counters, ops, ref)
+    cases.update(m_cases)
+
     # phase 3b: the solver kernels at the main path's captured round
-    solver_rows_, hp, solver_err = solver_phase(torch, capture.seen)
+    solver_rows_, _, solver_err = solver_phase(torch, capture.seen)
     solver_err["jcsba_population_kernel"] = max(
         solver_err["jcsba_population_kernel"], v_err)
     max_err.update(solver_err)
+    for k, v in m_err.items():
+        max_err[k] = max(max_err[k], v)
 
     # phase 4: times
     floor = floor_ms(torch)
@@ -2954,7 +3598,8 @@ def main() -> int:
           + f" ({card})")
     times = timing_phase(torch, ops, ref, cases)
     bb_times = backbone_timing_phase(torch, attn, ssd)
-    bb_times.update(solver_timing_phase(torch, solver_rows_, hp))
+    bb_times.update(solver_timing_phase(torch, solver_rows_ + m_rows,
+                                        m_bmin))
 
     def entry(name):
         rows = (bb_times[name] if name in bb_times else
@@ -2966,8 +3611,8 @@ def main() -> int:
             # the batched main path's launches are ``launches``; the seq
             # loop's, the fused loop's and the four timed scenario grids'
             # (captured times replays), the serve runs' (the MoE serve
-            # included), the continuous server's and the train steps'
-            # (``[train]``)
+            # included), the continuous server's, the train steps'
+            # (``[train]``) and the multi-device phase's (``[mesh]``)
             "launches_by_path": {"batched": launches[name],
                                  **{p: c.get(name, 0)
                                     for p, c in by_path.items()}},
@@ -2996,4 +3641,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:         # a rank of phase 7
+        sys.exit(mesh_rank(int(sys.argv[3]), int(sys.argv[4]), sys.argv[2]))
     sys.exit(main())

@@ -40,9 +40,29 @@ round: each scenario's solver-data rows, store and test split are copied
 into the static tensors the graph reads (the population kernel reads V
 from one of them), its R rounds replay, and its final carry and aux rows
 are copied out.
+
+On more than one device the port is SPMD, one process a rank (the caller
+initializes the default process group; every rank calls with the same
+arguments and gets the whole result back, as the JAX package's single
+controller gets a global array):
+
+* a 1-D ``("scenario",)`` mesh (``launch.mesh.make_sweep_mesh``) splits a
+  grid's rows: each rank replays its block through its own captured round
+  pair, with no collective in the graph, and ``gather_leading`` hands
+  every rank the whole grid at the end;
+* a 2-D ``("scenario", "clients")`` mesh (``make_population_mesh``) also
+  splits the client store: each rank holds K/n_clients rows of it and its
+  columns of ``xs.h`` and ``xs.client_seeds``, and the round reassembles
+  the channel draw, JCSBA's B_min and the cohort's rows over the
+  ``"clients"`` group (``_round_step(axis=)``); everything else in the
+  body runs replicated.  Collectives are captured under NCCL (after the
+  eager warm-up has created the communicator); gloo stages through the
+  host and cannot be captured, so under gloo the body runs eagerly
+  (``round_body``).
 """
 from __future__ import annotations
 
+import copy
 import math
 import time
 import warnings
@@ -50,12 +70,18 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import aggregation as agg
 from ..core.convergence import grad_gram, tracker_update_gram
 from ..core.trees import tree_leaves, tree_map
 from ..device import resolve_device
 from ..kernels import launch_counts
+from ..kernels.jcsba_solver.ops import bmin as _bmin
+from ..launch.mesh import axis_names, axis_sizes, make_sweep_mesh
+from ..launch.sharding import (gather_leading, leading_block,
+                               logical_pspec, masked_sum, pad_leading_axis,
+                               slice_leading_axis)
 from ..wireless.lyapunov import queue_update
 from ..wireless.solver import build_solver_data
 from ..wireless.solver.common import B_LO
@@ -179,6 +205,40 @@ def _stack_xs(h, draw, cseed, flags, bits, device) -> RoundXs:
                    torch.as_tensor(flags), draws)
 
 
+def _gather_rows(x, idx, group):
+    """Cross-shard cohort gather under a client-sharded mesh.
+
+    ``x`` is this rank's [K_loc, ...] block of a client-axis leaf; ``idx``
+    [J] holds *global* client indices (replicated).  Each rank takes the
+    rows it owns, puts the sum's identity in the others (``-0.0`` for
+    floats, so a ``-0.0`` feature comes back as it is; 0 for integers; bool
+    travels as int32) and the sum over ``group`` reassembles the cohort —
+    exact for every dtype: each output element receives one rank's value
+    (``launch.sharding.masked_sum``)."""
+    K_loc = x.shape[0]
+    local = idx - dist.get_rank(group) * K_loc
+    mine = (local >= 0) & (local < K_loc)
+    rows = x.index_select(0, local.clamp(0, K_loc - 1))
+    return masked_sum(rows, mine, group)
+
+
+def _clients_group(mesh, K):
+    """The group of ``mesh``'s ``"clients"`` axis (None: no mesh, or a mesh
+    without that axis); K must divide it, as in the JAX package."""
+    if mesh is None or logical_pspec(("clients",), mesh)[0] is None:
+        return None
+    n = axis_sizes(mesh)["clients"]
+    if K % n:
+        raise ValueError(f"K={K} must divide the mesh's clients axis "
+                         f"({n} shards)")
+    return mesh.get_group("clients")
+
+
+def _client_block(K, group):
+    """This rank's block of the K clients on a client axis's ``group``."""
+    return leading_block(K, dist.get_world_size(group), dist.get_rank(group))
+
+
 class FusedRoundEngine:
     """Per-experiment runner of the fused round.
 
@@ -205,7 +265,11 @@ class FusedRoundEngine:
     replay) and ``replays`` its replays, each keyed by graph.
 
     ``from_store`` builds an engine straight from a ``ClientStore``,
-    without an ``MFLExperiment``.
+    without an ``MFLExperiment``; with ``mesh=`` a ``("scenario",
+    "clients")`` mesh it keeps only this rank's block of the clients.
+    ``round_body`` says how a round runs on a card: ``"captured"`` (graph
+    replays), or ``"eager"`` when the client axis's group is gloo, whose
+    collectives cannot be captured.
     """
 
     def __init__(self, exp):
@@ -234,14 +298,22 @@ class FusedRoundEngine:
     def from_store(cls, store, params, policy, adapter, *, V: float = 1.0,
                    eta: float = 0.05, rho: float = 1.0,
                    staleness: float = 0.9, init_zeta: float = 1.0,
-                   init_delta: float = 0.3, seed: int = 0, device="cuda"):
+                   init_delta: float = 0.3, seed: int = 0, device="cuda",
+                   mesh=None):
         """An engine straight from a numpy ``ClientStore`` (e.g.
         ``synthetic_population``), ``WirelessParams`` and a policy: the
         solver template comes from the store's cost and ownership arrays,
         the tracker initials are ``BoundState``'s.  Use ``fresh_carry()``
         for the matching initial carry; a copy of client 0's shard stands
         in as the held-out split.  The engine keeps its own copy of the
-        store (a scenario grid swaps rows into it)."""
+        store (a scenario grid swaps rows into it).
+
+        ``mesh``: a mesh with a ``"clients"`` axis (``launch.mesh.
+        make_population_mesh``) keeps only this rank's block of K/n_clients
+        clients on the device; the solver template stays whole.  Its rounds
+        run client-sharded (``_round_step(axis=)``): every rank of the axis
+        calls each round with the same arguments, the whole ``xs``
+        included.  A mesh without that axis shards nothing."""
         self = cls.__new__(cls)
         self.exp = None
         self.policy = policy
@@ -276,16 +348,23 @@ class FusedRoundEngine:
             "has": has,
             "D": sizes,
         }
-        dstore = store.to(dev)._map(torch.clone)
+        test = ({m: torch.tensor(np_(store.features[m][0]), device=dev)
+                 for m in self.mods},
+                torch.tensor(np_(store.labels[0]), device=dev))
+        axis = _clients_group(mesh, self.K)
+        if axis is not None:
+            blk = _client_block(self.K, axis)
+            store = store._map(lambda x: x[blk])
+        dstore = store.to(dev)
+        if dev.type == "cpu":       # ``to`` wraps the numpy leaves there
+            dstore = dstore._map(torch.clone)
         gp = adapter.init_global(torch.Generator().manual_seed(seed), dev)
         self._global_params0 = gp
-        test = ({m: dstore.features[m][0].clone() for m in self.mods},
-                dstore.labels[0].clone())
-        self._setup(dev, tmpl, params, dstore, gp, adapter, test)
+        self._setup(dev, tmpl, params, dstore, gp, adapter, test, axis)
         return self
 
     def _setup(self, device, tmpl, params, store, init_params, adapter,
-               test_set):
+               test_set, axis=None):
         self.device = device
         self._solver_tmpl = to_device(tmpl, device)
         self._tau_max = float(params.tau_max)
@@ -302,6 +381,22 @@ class FusedRoundEngine:
         # drop-mask row -> engine modality, for policies with dropout
         self._drop_rows = {m: i for i, m in
                            enumerate(getattr(self.policy, "drop_mods", ()))}
+        self._client_twins = {}         # mesh -> client-sharded twin
+        self._set_axis(axis)
+        self._reset_graphs()
+
+    def _set_axis(self, axis):
+        """The client axis's group (None: unsharded), this rank's block of
+        the clients, and how a round runs: captured on a card unless the
+        group's collectives cannot be captured (gloo)."""
+        self._axis = axis
+        self._block = None if axis is None else _client_block(self.K, axis)
+        self.round_body = (
+            "captured" if self.device.type == "cuda" and (
+                axis is None or dist.get_backend(axis) == "nccl")
+            else "eager")
+
+    def _reset_graphs(self):
         self.capture_count = 0
         self.capture_seconds: Dict[Any, float] = {}
         self.graph_launches: Dict[Any, dict] = {}
@@ -385,28 +480,50 @@ class FusedRoundEngine:
     # the round
     # ------------------------------------------------------------------
     def _round_step(self, carry: FusedCarry, xs: RoundXs, store,
-                    evaluate: bool, overrides=None, test_set=None):
+                    evaluate: bool, overrides=None, test_set=None,
+                    axis=None):
         """One round, every step on the device, no read-back; the steps
         of the JAX package's body (``fl/fused_round.py:434-569``).
 
+        ``store`` is the (possibly rank-local) store; ``axis`` the process
+        group the store and the per-client xs leaves (``h``,
+        ``client_seeds``: this rank's columns) are split over (None:
+        unsharded).  Cohort compute runs replicated over the axis — only
+        the O(K·N·d) store and the per-client randomness are split.
         ``overrides`` replaces solver-template entries for this round (a
         scenario's V, ownership, Eq. 12 denominators and costs, as device
         tensors); ``test_set`` is a ``(features, labels)`` pair evaluated
         in place of the engine's held-out split."""
         dev = carry.Q.device
+        # 0. under a client-sharded mesh the vector physics stays dense and
+        # replicated: reassemble the whole channel draw
+        h = xs.h if axis is None else gather_leading(xs.h, axis)
+
         # 1. server decision: the policy's step on the round's draws; the
         # policy state (warm start, cursor) rides in the carry
         data = dict(self._solver_tmpl)
         if overrides:
             data.update(overrides)
-        data["Q"], data["h"] = carry.Q, xs.h
+        data["Q"], data["h"] = carry.Q, h
         data["zeta2"] = torch.square(carry.zeta)
         data["delta2"] = torch.square(carry.delta)
+        if axis is not None and hasattr(self.policy, "hp"):
+            # the KKT B_min bisection is the solver's only per-client
+            # compute: run it on this rank's block and reassemble —
+            # elementwise, so exact
+            K_loc = xs.h.shape[0]
+            off = dist.get_rank(axis) * K_loc
+            bl, okl = _bmin(data["gamma"][off:off + K_loc], xs.h,
+                            data["tau_rem"][off:off + K_loc],
+                            data["B_max"], data["p_tx"], data["N0"],
+                            self.policy.hp)
+            data["bmin"] = gather_leading(bl, axis)
+            data["bmin_ok"] = gather_leading(okl, axis)
         pstate, a, B, J, drop_rows, idx = self.policy.step_full(
             carry.policy, data, carry.model_dist, xs.draws)
 
         # 2. latency feasibility (C4): scheduled but late ⇒ failure
-        r = rate(torch.clamp_min(B, B_LO), xs.h, self._p_tx, self._N0)
+        r = rate(torch.clamp_min(B, B_LO), h, self._p_tx, self._N0)
         tcom = torch.where(a, data["gamma"] / torch.clamp_min(r, 1e-30), 0.0)
         ok = a & (tcom + data["tau_cmp"] <= self._tau_max + 1e-12)
 
@@ -415,8 +532,12 @@ class FusedRoundEngine:
         # cohort: with every mask 0 the gradient is exactly 0, so the step
         # returns the globals unchanged, as the JAX body's skip branch
         idx_l = idx.to(torch.long)
-        cohort = store.take(idx_l)
-        seeds_c = xs.client_seeds.index_select(0, idx_l)
+        if axis is None:
+            cohort = store.take(idx_l)
+            seeds_c = xs.client_seeds.index_select(0, idx_l)
+        else:
+            cohort = store._map(lambda x: _gather_rows(x, idx_l, axis))
+            seeds_c = _gather_rows(xs.client_seeds, idx_l, axis)
         ok_c = ok.index_select(0, idx_l)
         drop = {m: drop_rows[i] for m, i in self._drop_rows.items()
                 if m in self.mods}       # empty for policies without dropout
@@ -501,7 +622,8 @@ class FusedRoundEngine:
         grid's static test buffers, ``test_set``) — captured at first use:
         static buffers from the first carry and xs, an eager warm-up of
         the body on a side stream (library loads, ``cudaFuncSetAttribute``,
-        cuBLAS and cuDNN handles, the policies' static tables), then the
+        cuBLAS and cuDNN handles, the policies' static tables, the NCCL
+        communicator of a client axis), then the
         capture, which also copies the new carry into the static carry and
         the packed aux into the static aux row.  A failed capture raises:
         there is no eager fallback on a card."""
@@ -525,7 +647,8 @@ class FusedRoundEngine:
             for _ in range(2):
                 _, aux = self._round_step(self._static_carry,
                                           self._static_xs, self._store,
-                                          evaluate, test_set=test_set)
+                                          evaluate, test_set=test_set,
+                                          axis=self._axis)
                 packed = self._pack(aux)
         torch.cuda.current_stream(dev).wait_stream(side)
         if self._static_aux is None:
@@ -535,7 +658,7 @@ class FusedRoundEngine:
         with torch.cuda.graph(g, pool=self._pool):
             new, aux = self._round_step(self._static_carry, self._static_xs,
                                         self._store, evaluate,
-                                        test_set=test_set)
+                                        test_set=test_set, axis=self._axis)
             self._static_aux.copy_(self._pack(aux))
             for d, s in zip(tree_leaves(self._static_carry),
                             tree_leaves(new)):
@@ -557,14 +680,24 @@ class FusedRoundEngine:
                         tree_leaves(carry)):
             d.copy_(s)
 
+    def _local_xs(self, xs: RoundXs) -> RoundXs:
+        """This rank's columns of the per-client xs leaves (``h``,
+        ``client_seeds``) on a client-sharded engine; ``xs`` otherwise."""
+        if self._axis is None:
+            return xs
+        blk = self._block
+        return xs._replace(h=xs.h[..., blk],
+                           client_seeds=xs.client_seeds[..., blk])
+
     def _step_packed(self, carry: FusedCarry, xs: RoundXs, test_set=None):
         """(new carry, packed aux row [n] on the device); ``test_set``: a
         scenario grid's static test buffers, evaluated in place of the
         engine's held-out split."""
         evaluate = bool(xs.eval_flag)           # a host tensor: no sync
-        if self.device.type != "cuda":
+        xs = self._local_xs(xs)
+        if self.round_body == "eager":
             new, aux = self._round_step(carry, xs, self._store, evaluate,
-                                        test_set=test_set)
+                                        test_set=test_set, axis=self._axis)
             return new, self._pack(aux)
         key = "grid" if evaluate and test_set is not None else evaluate
         g = self._graph(key, carry, xs, test_set)
@@ -583,7 +716,8 @@ class FusedRoundEngine:
         """One round of the body run eagerly, on any device: (new carry,
         RoundAux of device tensors) — the reference a card's graph
         replays are held against."""
-        return self._round_step(carry, xs, self._store, bool(xs.eval_flag))
+        return self._round_step(carry, self._local_xs(xs), self._store,
+                                bool(xs.eval_flag), axis=self._axis)
 
     def step(self, carry: FusedCarry, xs: RoundXs):
         """One round: (new carry, RoundAux of device tensors)."""
@@ -648,32 +782,107 @@ class FusedRoundEngine:
         ``FusedCarry`` leaves [S, ...], ``RoundAux`` leaves [S, R, ...], on
         the device.
 
-        ``mesh``: None or ``"auto"`` run on the engine's one device; the
-        port has no mesh type, so any mesh raises ``NotImplementedError``
-        (sharded scenario and client axes are ROADMAP item 10)."""
-        self._one_device(mesh)
+        ``mesh``: ``"auto"`` builds a 1-D ``("scenario",)`` mesh over the
+        default group's ranks (``launch.mesh.make_sweep_mesh``; None on a
+        world of 1), None runs on the engine's one device.  On a 1-D mesh of
+        n ranks the grid is padded to a multiple of n by repeating its last
+        row, each rank runs its block of rows as above, and every rank gets
+        the whole grid back (``launch.sharding.gather_leading``), equal to
+        the one-device sweep.  The 2-D ``("scenario", "clients")`` mesh is
+        V-grid-only: run it through ``scan_v_grid``."""
+        if isinstance(mesh, str) and mesh == "auto":
+            mesh = make_sweep_mesh(device=self.device)
         ovr, stores, test_sets, n_S = self._grid_inputs(overrides, stores,
                                                         test_sets)
-        carries, rows = self._grid_packed(ovr, stores, test_sets, carry, xs,
-                                          n_S)
+        if mesh is None or mesh.size() <= 1:
+            carries, rows = self._grid_packed(ovr, stores, test_sets, carry,
+                                              xs, n_S)
+            return carries, self._unpack(rows)
+        if "clients" in axis_names(mesh):
+            raise ValueError(
+                "scan_scenario_grid supports 1-D ('scenario',) meshes only; "
+                "the 2-D ('scenario', 'clients') population mesh shards the "
+                "client store itself — run V-only grids there via "
+                "scan_v_grid")
+        if self._axis is not None:
+            raise ValueError("an engine built on a client mesh splits its "
+                             "rounds over that mesh's ranks: sweep with "
+                             "mesh=None or that mesh")
+        carries, rows = self._sharded_rows(ovr, stores, test_sets, carry,
+                                           xs, mesh.get_group("scenario"),
+                                           n_S)
         return carries, self._unpack(rows)
 
     def scan_v_grid(self, V_grid, carry: FusedCarry, xs: RoundXs,
                     mesh="auto"):
         """Whole experiments over a drift-penalty grid — the paper's Fig. 4
         V study: ``scan_scenario_grid({"V": V_grid})``, the engine's store
-        and test split shared by every row."""
-        return self.scan_scenario_grid(
-            {"V": np.asarray(V_grid, np.float32)}, carry, xs, mesh=mesh)
+        and test split shared by every row.
 
-    @staticmethod
-    def _one_device(mesh):
-        if mesh is None or (isinstance(mesh, str) and mesh == "auto"):
-            return
-        raise NotImplementedError(
-            f"mesh {mesh!r}: the port sweeps a grid on the engine's one "
-            f"device; sharded scenario and client axes are ROADMAP item 10 "
-            f"(the multi-device layer). Pass mesh=None")
+        ``mesh`` as ``scan_scenario_grid``'s; a 2-D ``("scenario",
+        "clients")`` mesh (``launch.mesh.make_population_mesh``) also splits
+        the client store and the per-client randomness over the
+        ``"clients"`` axis: each rank holds K/n_clients rows of every
+        O(K·N·d) leaf (an engine built ``from_store(mesh=)`` holds only
+        those; otherwise views of them), and the round reassembles what it
+        needs over the axis (``_round_step(axis=)``).  The V grid is padded
+        over ``"scenario"`` and sliced back; K must divide the clients
+        axis.  Sharded and one-device sweeps give the same results."""
+        if isinstance(mesh, str) and mesh == "auto":
+            mesh = make_sweep_mesh(device=self.device)
+        V = np.asarray(V_grid, np.float32)
+        if mesh is None or mesh.size() <= 1 or \
+                "clients" not in axis_names(mesh):
+            return self.scan_scenario_grid({"V": V}, carry, xs, mesh=mesh)
+        eng = self._client_engine(mesh)
+        ovr = eng._grid_inputs({"V": V}, None, None)[0]
+        carries, rows = eng._sharded_rows(ovr, None, None, carry, xs,
+                                          mesh.get_group("scenario"),
+                                          V.shape[0])
+        return carries, eng._unpack(rows)
+
+    def _sharded_rows(self, ovr, stores, test_sets, carry, xs, group, n_S):
+        """A grid's S rows split over ``group``'s ranks: the [S]-leading
+        inputs padded to a multiple of the group's size (the last row
+        repeated), this rank's block run as ``_grid_packed`` runs a grid,
+        every rank's block gathered back (``gather_leading``): (carries
+        [S, ...], packed aux rows [S, R, n]) on every rank, equal to the
+        one-device sweep's."""
+        n = dist.get_world_size(group)
+        blk = leading_block(-(-n_S // n) * n, n, dist.get_rank(group))
+
+        def mine(x):
+            return pad_leading_axis(x, n)[blk]
+        ovr = tree_map(mine, ovr)
+        if stores is not None:
+            stores = stores._map(mine)
+        if test_sets is not None:
+            test_sets = (tree_map(mine, test_sets[0]), mine(test_sets[1]))
+        carries, rows = self._grid_packed(ovr, stores, test_sets, carry, xs,
+                                          blk.stop - blk.start)
+        if n > 1:
+            carries, rows = gather_leading(carries, group), \
+                gather_leading(rows, group)
+        return slice_leading_axis(carries, n_S), rows[:n_S]
+
+    def _client_engine(self, mesh):
+        """The engine whose rounds run split over ``mesh``'s clients axis:
+        this one if it was built on a client mesh (``from_store(mesh=)``),
+        else a twin kept for ``mesh`` that shares this engine's template,
+        test split and params and holds views of this rank's block of the
+        store, with graphs of its own."""
+        if self._axis is not None:
+            return self
+        eng = self._client_twins.get(mesh)
+        if eng is None:
+            eng = copy.copy(self)
+            eng._solver_tmpl = dict(self._solver_tmpl)
+            eng._client_twins = {}
+            eng._set_axis(_clients_group(mesh, self.K))
+            eng._store = self._store._map(lambda x: x[eng._block])
+            eng._reset_graphs()
+            self._client_twins[mesh] = eng
+        return eng
 
     def _on_device(self, x):
         return x.to(self.device) if isinstance(x, torch.Tensor) else \
@@ -747,10 +956,10 @@ class FusedRoundEngine:
         auxs = []
         for i in range(xs.h.shape[0]):
             x = tree_row(xs, i)
-            carry, aux = self._round_step(carry, x, store,
+            carry, aux = self._round_step(carry, self._local_xs(x), store,
                                           bool(x.eval_flag),
                                           overrides=overrides,
-                                          test_set=test_set)
+                                          test_set=test_set, axis=self._axis)
             auxs.append(aux)
         return carry, tree_map(lambda *a: torch.stack(a), *auxs)
 

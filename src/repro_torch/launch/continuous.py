@@ -29,6 +29,13 @@ tensors and rebind none, so a swap needs no new capture:
 ``recompiles`` counts those after warm-up — 0, by construction and by
 assertion.  Prefill and the bias run eagerly.
 
+On a mesh (``mesh=``, a ``DeviceMesh`` over the default group's ranks,
+one process a rank) the flat buffers stay replicated
+(``launch.sharding.serving_buffer_shardings``): every rank holds a full
+copy and runs the same decode graph, a hot swap is an in-place copy on
+every rank, and the decode path has no collective — as in the JAX
+package.  Every rank serves the same batch with the same arguments.
+
 The JAX package draws ``coupling`` with ``jax.random.normal``, which the
 port cannot replay: pass it as ``coupling`` (a [C, V] array, already
 scaled) to serve the JAX package's; otherwise it is drawn from
@@ -54,9 +61,7 @@ from ..models.config import ModelConfig
 from . import parambuf
 from . import steps as S
 from .serve import sync
-
-_MESH_QUEUED = ("the multi-device layer (launch/mesh.py, launch/sharding.py) "
-                "is not ported yet; ROADMAP.md Queue 1 item 10")
+from .sharding import serving_buffer_shardings
 
 
 def _on(tree, dev):
@@ -79,9 +84,13 @@ class ContinuousServer:
             raise NotImplementedError(
                 "audio archs serve through launch.serve (encoder-side cross "
                 "K/V); the continuous harness drives T.decode_step backbones")
-        if mesh is not None:
-            raise NotImplementedError(_MESH_QUEUED)
         dev = resolve_device(device)
+        if mesh is not None and (mesh.device_type != dev.type
+                                 or mesh.get_coordinate() is None):
+            raise ValueError(
+                f"mesh of {mesh.device_type!r} ranks "
+                f"{mesh.mesh.flatten().tolist()}: a server on {dev} serves "
+                f"on a mesh of its device type that holds its rank")
         self.cfg, self.device, self.max_len = cfg, dev, max_len
         self.feats = _on(dict(request_feats), dev)
         self.batch = next(iter(self.feats.values())).shape[0]
@@ -98,6 +107,9 @@ class ContinuousServer:
                 "coupling": _on(coupling, dev).float()}
         self.spec = parambuf.spec_of(tree)
         self.bufs = parambuf.pack(tree, self.spec)
+        # replicated: this rank's buffers are its whole copy
+        self.placements = (None if mesh is None else
+                           serving_buffer_shardings(self.bufs, mesh))
         del tree
         # every param is a view of the buffers from here on: the frozen LM
         # and the coupling are their slots' views, so a swap skips them

@@ -54,6 +54,11 @@ from repro_torch.launch import serve
 out = serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
                   "--batch", "2", "--gen-len", "3"])
 assert tuple(out.shape) == (2, 3)
+# the multi-device layer imports no process group at import time
+for mod in ("launch.mesh", "launch.sharding", "launch.ranks"):
+    assert "repro_torch." + mod in names, mod
+from repro_torch.launch import mesh
+assert mesh.make_sweep_mesh() is None and mesh.world_size() == 1
 # the training path: optim, data/tokens, models/moe, models/analysis and
 # launch/train, driven on a reduced MoE arch and the VLM
 for mod in ("optim", "optim.optimizers", "data.tokens", "models.moe",
@@ -77,7 +82,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.strip().splitlines()[-1].split()[0])
-    assert n_modules >= 82
+    assert n_modules >= 85
 
 
 @pytest.fixture
@@ -708,6 +713,73 @@ def test_scenario_grid_replays_equal_the_eager_body(cuda):
                     tree_leaves(c1) + tree_leaves(a1)):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6,
                                    equal_nan=True)
+
+
+_NCCL_MESH = """
+import sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+sys.path.insert(0, sys.argv[2])
+from test_torch_isolation import _grid_card
+from repro_torch.core.trees import tree_leaves
+from repro_torch.fl.client import make_adapter
+from repro_torch.fl.fused_round import FusedRoundEngine, tree_row
+from repro_torch.wireless.params import WirelessParams
+dist.init_process_group("nccl", init_method=f"file://{sys.argv[1]}/pg",
+                        rank=0, world_size=1)
+grid, eng, xs, kw = _grid_card()
+one = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("scenario",))
+carries, auxs = eng.scan_scenario_grid(grid.overrides, eng.fresh_carry(), xs,
+                                       mesh=one, **kw)
+for s in range(grid.n):
+    ovr, store, test = eng._grid_row(grid.overrides, s, **kw)
+    c, a = eng._scan_one_scenario(ovr, store, test, eng.fresh_carry(), xs)
+    assert torch.equal(a.ok, auxs.ok[s])
+    for x, y in zip(tree_leaves(c.params), tree_leaves(carries.params)):
+        torch.testing.assert_close(x, y[s], rtol=1e-6, atol=1e-6)
+mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                  mesh_dim_names=("scenario", "clients"))
+ceng = FusedRoundEngine.from_store(
+    grid.store_row(0), WirelessParams(K=6, B_max=6e6, E_add=2e-4),
+    eng.policy, make_adapter("iemocap", dropout=0.0), device="cuda",
+    mesh=mesh)
+assert ceng.round_body == "captured" and ceng._axis is not None
+graph = eager = plain = ceng.fresh_carry()
+for i in range(3):
+    x = tree_row(xs, i)
+    eager, ae = ceng.step_eager(eager, x)
+    plain, ap = eng.step_eager(plain, x)
+    graph, ag = ceng.step(graph, x)
+    for ref in (ae, ap):
+        assert torch.equal(ref.ok, ag.ok) and torch.equal(ref.a, ag.a)
+for a, b, c in zip(tree_leaves(eager.params), tree_leaves(plain.params),
+                   tree_leaves(graph.params)):
+    torch.testing.assert_close(a, c, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(b, c, rtol=1e-6, atol=1e-6)
+assert ceng.capture_count == 2
+assert all(g["jcsba_bmin_kernel"] == 1 for g in ceng.graph_launches.values())
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_grid_and_captured_client_round(cuda, tmp_path):
+    """On a 1-rank NCCL group: the 1-D grid on a ("scenario",) mesh of one
+    rank (graph replays) against each row's eager body, and an engine
+    built on a 1×1 ("scenario", "clients") mesh, whose round — the channel
+    reassembly, the shard's B_min and the cohort gather — is captured with
+    its NCCL collectives in the graph: replays equal the eager body and
+    the unsharded engine's body.  In a process of its own, so the NCCL
+    communicator and the graphs that hold its kernels end with it."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run(
+        [sys.executable, "-c", _NCCL_MESH, str(tmp_path),
+         os.path.dirname(os.path.abspath(__file__))],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), \
+        res.stdout[-2000:] + res.stderr[-4000:]
 
 
 def _fused_card(arch="lstm-cnn", **kw):

@@ -513,23 +513,44 @@ def test_grid_refuses_mismatched_overrides(lstm_grid):
             {"V": np.ones(2)}, c, g.txs, stores=g.tgrid.stores)
 
 
-FakeMesh = collections.namedtuple("FakeMesh", "devices axis_names")
+class FakeMesh:
+    """A stand-in for a ``DeviceMesh``: axis names and sizes, no ranks."""
+
+    def __init__(self, shape, names):
+        self.shape, self.mesh_dim_names = shape, names
+
+    def size(self):
+        return int(np.prod(self.shape))
 
 
 @pytest.mark.parametrize("mesh", [
-    FakeMesh(np.empty(4, object), ("scenario",)),
-    FakeMesh(np.empty((1, 1), object), ("scenario", "clients"))],
+    FakeMesh((1, 4), ("scenario", "clients")),
+    FakeMesh((1, 2), ("scenario", "clients"))],
     ids=["four-devices", "clients-axis"])
 def test_multi_device_mesh_raises(lstm_grid, mesh):
+    """The JAX package's errors, with its words, before any rank is asked:
+    K=6 does not divide four client shards, and a client mesh cannot
+    carry a scenario grid.  A mesh of one device sweeps on the engine's
+    device, as ``mesh=None``."""
     g = lstm_grid
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        g.teng.scan_v_grid([1.0, 2.0], g.teng.fresh_carry(), g.txs,
-                           mesh=mesh)
-    one = FakeMesh(np.empty(1, object), ("scenario",))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        g.teng._one_device(one)                # no mesh type in the port
-    g.teng._one_device(None)
-    g.teng._one_device("auto")
+    n = mesh.shape[1]
+    if 6 % n:
+        with pytest.raises(ValueError, match=f"K=6 must divide the mesh's "
+                                             f"clients axis \\({n} shards"):
+            g.teng.scan_v_grid([1.0, 2.0], g.teng.fresh_carry(), g.txs,
+                               mesh=mesh)
+    with pytest.raises(ValueError, match="supports 1-D \\('scenario',\\) "
+                                         "meshes only"):
+        g.teng.scan_scenario_grid({"V": np.ones(2)}, g.teng.fresh_carry(),
+                                  g.txs, mesh=mesh)
+    xs = tree_map(lambda x: x[:1], g.txs)
+    one = g.teng.scan_v_grid([1.0, 2.0], g.teng.fresh_carry(), xs,
+                             mesh=FakeMesh((1,), ("scenario",)))
+    ref = g.teng.scan_v_grid([1.0, 2.0], g.teng.fresh_carry(), xs,
+                             mesh=None)
+    for x, y in zip(tree_leaves(one[0]) + tree_leaves(one[1]),
+                    tree_leaves(ref[0]) + tree_leaves(ref[1])):
+        assert _same(x, y)
 
 
 def test_transformer_grid_matches_jax():

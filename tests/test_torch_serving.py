@@ -392,7 +392,10 @@ def test_audio_arch_and_mesh_rejected():
     with pytest.raises(NotImplementedError):
         ContinuousServer(TARCHS["whisper-base"].reduced(), {}, {}, feats,
                          max_len=8, device="cpu")
+    # a mesh of another device type than the server's is refused
     cfg = TARCHS["qwen3-0.6b"].reduced()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ContinuousServer(cfg, {}, {}, feats, max_len=8, mesh=object(),
+    mesh = argparse.Namespace(device_type="cuda", mesh=torch.arange(2),
+                              get_coordinate=lambda: [0])
+    with pytest.raises(ValueError, match="of its device type"):
+        ContinuousServer(cfg, {}, {}, feats, max_len=8, mesh=mesh,
                          device="cpu")
