@@ -117,9 +117,25 @@ Phases, each of which fails the run when it fails:
    fails the phase; the kernels against their plain versions at the
    operands these runs recorded — fusion at the population cohort, B_min
    on K and K/2 rows, the population kernel at K=5000 (timed in phase 4);
+8. ``[dryrun]`` and ``[examples]``: ``python -m repro_torch.launch.dryrun
+   --device cuda`` on the fake 16x16 mesh for qwen3-0.6b train_4k and
+   decode_32k and llama4-scout-17b-a16e train_4k (one subprocess each, all
+   started together, cut to 2 super-blocks; no kernel — the step runs
+   ``impl="xla"`` on fake tensors), each combo's status, counted FLOPs
+   and bytes a rank and collective bytes printed and its status held to
+   the CPU's; meanwhile each twin of ``examples/*.py`` (``examples/torch``)
+   runs here on the card at small arguments with the counters set to 0
+   just before it, and fails if a kernel of its path was not launched
+   (the JSON line's ``"examples"`` path); the operands each twin hands
+   the kernels (the first of each shape, and its first JCSBA solve) are
+   recorded, and every kernel is held against its plain version at them
+   — the fusion loss at the twins' cohorts, attention at the reduced
+   LMs' loss, train and prefill shapes, the SSD chunk at the mamba2
+   prefill, the autograd Functions, B_min and the population kernel at
+   each solve (timed in phase 4 where no other phase timed the shape);
 4. time each kernel (CUDA events, after warm-up) beside its plain version,
    its bound and, where one PyTorch call computes the same function, that
-   call, at every shape of phases 2, 3b and 7; a ``[floor]`` line gives the
+   call, at every shape of phases 2, 3b, 7 and 8; a ``[floor]`` line gives the
    device time of a one-element ``add_``, the launch floor.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, without CUDA.
@@ -325,6 +341,37 @@ MESH_KERNELS = ("fusion_loss_fwd", "fusion_loss_bwd") + SOLVER_KERNELS
 #: eager body: the fused tests' (tests/test_torch_isolation.py)
 TOL_SHARD = dict(rtol=2e-6, atol=1e-7)
 TOL_GRAPH = 1e-6
+
+#: [dryrun]: the LM-scale dry run (``repro_torch.launch.dryrun``) on the
+#: fake 16x16 mesh, one subprocess a combo (the fake group stays out of
+#: this process), all started together and cut to DRYRUN_BLOCKS
+#: super-blocks; each combo must come out as it does on the CPU
+#: (README's table of statuses)
+DRYRUN_COMBOS = (("qwen3-0.6b", "train_4k", "ok"),
+                 ("qwen3-0.6b", "decode_32k", "ok"),
+                 ("llama4-scout-17b-a16e", "train_4k", "ok"))
+DRYRUN_BLOCKS = 2
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
+DRYRUN_TIMEOUT = 600
+#: [examples]: each twin of examples/*.py (examples/torch/) on the card
+#: at small arguments, and the kernels its path must launch
+EXAMPLES = (
+    ("quickstart", ("--rounds", "2"),
+     ("fusion_loss_fwd", "fusion_loss_bwd", "flash_attention_fwd")
+     + SOLVER_KERNELS),
+    ("wireless_mfl", ("--rounds", "2", "--n-samples", "400", "--engine",
+                      "batched:pallas", "--out",
+                      os.path.join(ROOT, "build", "examples",
+                                   "wireless_mfl.json")),
+     ("fusion_loss_fwd", "fusion_loss_bwd") + SOLVER_KERNELS),
+    ("federated_pods", ("--rounds", "2"),
+     ("flash_attention_fwd",) + SOLVER_KERNELS),
+    ("serve_batched", ("--arch", "qwen3-0.6b"), ("flash_attention_fwd",)),
+    ("serve_batched", ("--arch", "mamba2-370m"), ("ssd_chunk_fwd",)),
+    ("serve_continuous", ("--rounds", "2", "--steps-per-round", "8"),
+     ("fusion_loss_fwd", "fusion_loss_bwd", "flash_attention_fwd")
+     + SOLVER_KERNELS),
+)
 
 
 def gpu_line() -> str:
@@ -1625,14 +1672,15 @@ def arch_grid_phase(torch, arch, counters, found):
     return counts
 
 
-def grid_kernel_phase(torch, ops, ref, found):
+def grid_kernel_phase(torch, ops, ref, found, tag="grid"):
     """The kernels against their plain versions at the operands the grids'
     warm-ups handed them (``GridOperands``): the fusion loss at each
     grid's cohort shape (the zoo's T=120 leaves each client a 24-row tail
     block in the rows regime), attention and the SSD chunk at the backbone
     grids' cohort and eval shapes, the autograd Functions at their
-    operands.  Returns (fusion cases, attention cases, SSD cases, max abs
-    error per kernel against the float32 plain version)."""
+    operands; the same at the examples' operands with ``tag="examples"``.
+    Returns (fusion cases, attention cases, SSD cases, max abs error per
+    kernel against the float32 plain version)."""
     errs = {k: [] for k in ("fusion_loss_fwd", "fusion_loss_bwd",
                             "fusion_loss_reduce", "flash_attention_fwd",
                             "ssd_chunk_fwd")}
@@ -1640,23 +1688,23 @@ def grid_kernel_phase(torch, ops, ref, found):
     for rec in found.get("fusion_bwd", {}).values():
         lg, lab, av, df, dm = rec["args"][:5]
         K, T = lab.shape
-        label = f"grid {rec['label']}"
+        label = f"{tag} {rec['label']}"
         cases[label] = dict(logits=list(lg), labels=lab, avail=av,
                             d_fused=df, d_modal=dm,
                             seg=tuple(rec["args"][7]),
                             shape=(K, T, lg[0].shape[-1], len(lg)))
         fusion_check(torch, ops, ref, label, cases[label], errs)
     attn = [attn_case(torch, *rec["args"], rec["kw"].get("window"),
-                      f"grid {rec['label']}")
+                      f"{tag} {rec['label']}")
             for rec in found.get("attn", {}).values()]
-    ssd = [ssd_case(*rec["args"], f"grid {rec['label']}")
+    ssd = [ssd_case(*rec["args"], f"{tag} {rec['label']}")
            for rec in found.get("ssd_chunk", {}).values()]
     backbone_checks(torch, attn, ssd,
                     {k: found.get(k, {}) for k in ("attn", "ssd_forward")},
                     errs)
     empty = [k for k, v in errs.items() if not v]
     if empty:
-        raise AssertionError(f"grids: no operands recorded for {empty}")
+        raise AssertionError(f"{tag}: no operands recorded for {empty}")
     return cases, attn, ssd, {k: max(v) for k, v in errs.items()}
 
 
@@ -3426,6 +3474,147 @@ def rank_serve(torch, counters, mesh, init, new, feats, counts):
                 placements=placements, swap_ms=swap_ms)
 
 
+# ---------------------------------------------------------------------------
+# the dry run and the examples
+# ---------------------------------------------------------------------------
+def dryrun_start():
+    """Start one ``python -m repro_torch.launch.dryrun --device cuda``
+    a combo of ``DRYRUN_COMBOS``, all together."""
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape, _ in DRYRUN_COMBOS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+               "cuda", "--arch", arch, "--shape", shape, "--blocks",
+               str(DRYRUN_BLOCKS), "--force", "--out", DRYRUN_DIR]
+        log = open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}.log"), "w")
+        procs.append(subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=log,
+                                      stderr=subprocess.STDOUT))
+        log.close()
+    return procs, time.perf_counter()
+
+
+def dryrun_finish(started, card):
+    """Wait for the dry-run processes (each is stopped before this
+    returns) and hold every record's status to the CPU's."""
+    procs, t0 = started
+    bad = []
+    try:
+        for p, (arch, shape, want) in zip(procs, DRYRUN_COMBOS):
+            p.wait(timeout=DRYRUN_TIMEOUT)
+            if p.returncode:
+                with open(os.path.join(DRYRUN_DIR,
+                                       f"{arch}__{shape}.log")) as f:
+                    bad.append(f"dryrun {arch} {shape}: exit "
+                               f"{p.returncode}\n{f.read()[-3000:]}")
+                continue
+            tag = f"{arch}__{shape}__16x16__blocks{DRYRUN_BLOCKS}"
+            with open(os.path.join(DRYRUN_DIR, tag + ".json")) as f:
+                rec = json.load(f)
+            coll = rec.get("collectives", {})
+            print(f"[dryrun] {tag}: {rec['status']} step "
+                  f"{rec.get('step_s')} s; counted flops a rank "
+                  f"{rec.get('counted_flops_per_rank')} (global "
+                  f"{rec.get('counted_flops_global')}); argument bytes a "
+                  f"rank {rec.get('argument_size_in_bytes')}; collective "
+                  f"operand bytes {coll.get('total_operand_bytes')} "
+                  f"{coll.get('op_counts')}")
+            if rec["status"] != want:
+                bad.append(f"dryrun {tag}: {rec['status']} on the card, "
+                           f"{want} on the CPU: {rec.get('error')}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"[dryrun] {len(procs)} combos at {DRYRUN_BLOCKS} super-blocks: "
+          f"{time.perf_counter() - t0:.3f} s, start-up included ({card})")
+    if bad:
+        raise AssertionError("\n".join(bad))
+
+
+def load_example(name):
+    """``examples/torch/<name>.py`` as a module (its ``main(argv)``)."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", "torch", name + ".py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch, counters, card, found, solves):
+    """``[examples]``: each of ``EXAMPLES`` in this process with the
+    counters set to 0 just before it and read after; fails if it raises
+    or if a kernel of its path was not launched.  The operands each twin
+    hands the kernel wrappers go into ``found`` (``GridOperands``: the
+    first of each shape, from eager calls, also ahead of a graph capture)
+    and its first JCSBA solve, with that solve's population launches,
+    into ``solves`` (``SolverCapture``), for ``examples_kernel_phase``.
+    Returns the summed launches."""
+    reset, read = counters
+    total = {}
+    for name, args, kernels in EXAMPLES:
+        mod = load_example(name)
+        label = name + (f" {args[args.index('--arch') + 1]}"
+                        if "--arch" in args else "")
+        solve = SolverCapture()
+        reset()
+        t0 = time.perf_counter()
+        with GridOperands(torch, found, label), solve:
+            mod.main(["--device", "cuda", *args])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        now = read()
+        print(f"[examples] {name} {' '.join(args)}: {dt:.3f} s ({card}); "
+              f"launches {now}")
+        for k in kernels:
+            if not now[k]:
+                raise AssertionError(f"examples: {name} did not launch {k}")
+        if set(SOLVER_KERNELS) & set(kernels):
+            if solve.seen is None:
+                raise AssertionError(f"examples: {name}: no JCSBA solve "
+                                     f"recorded")
+            solves[label] = solve.seen
+        for k, v in now.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def examples_kernel_phase(torch, ops, ref, found, solves):
+    """The kernels against their plain versions at the operands the
+    examples' twins recorded (``examples_phase``): the fusion loss,
+    attention and the SSD chunk at each shape and the autograd Functions
+    at their operands (``grid_kernel_phase``); B_min on each twin's first
+    solve's round data and the population kernel at the first launch of
+    each P of that solve.  Returns (fusion cases, attention cases, SSD
+    cases, population rows, B_min rows, max abs error per kernel)."""
+    cases, attn, ssd, errs = grid_kernel_phase(torch, ops, ref, found,
+                                               tag="examples")
+    serr = {k: [] for k in SOLVER_KERNELS}
+    rows, bmin_rows = [], []
+    for label, (data, _, _, hp, launches) in solves.items():
+        K = data["gamma"].shape[0]
+        bmin_rows.append((f"examples {label} B_min", data, hp))
+        bmin_check(torch, bmin_rows[-1][0], data, hp,
+                   serr["jcsba_bmin_kernel"])
+        for i, (A, bm, ok, want_B) in enumerate(launches):
+            P = A.shape[0]
+            if any(r[2].shape == A.shape for r in rows):
+                continue
+            rows.append((f"examples {label} P={P} K={K} (launch {i})", data,
+                         A, bm, ok, want_B,
+                         solver_work(torch, data, A, bm, ok, hp), hp))
+            nfeas = solver_check(torch, rows[-1][0], data, A, bm, ok, hp,
+                                 serr["jcsba_population_kernel"])
+            print(f"[solver] {rows[-1][0]}: {nfeas} of {P} rows feasible")
+    empty = [k for k, v in serr.items() if not v]
+    if empty:
+        raise AssertionError(f"examples: no operands recorded for {empty}")
+    errs.update({k: max(v) for k, v in serr.items()})
+    return cases, attn, ssd, rows, bmin_rows, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3583,12 +3772,30 @@ def main() -> int:
         torch, counters, ops, ref)
     cases.update(m_cases)
 
+    # phase 8: the LM-scale dry run in subprocesses (no kernel: impl="xla"
+    # on fake tensors), while the examples' twins run here on the card,
+    # each with the counters set to 0 just before it
+    started = dryrun_start()
+    ex_found, ex_solves = {}, {}
+    try:
+        by_path["examples"] = examples_phase(torch, counters, card,
+                                             ex_found, ex_solves)
+    finally:
+        dryrun_finish(started, card)
+    # the kernels at the operands the twins recorded (timed with the
+    # others)
+    e_cases, e_attn, e_ssd, e_rows, e_bmin, e_err = examples_kernel_phase(
+        torch, ops, ref, ex_found, ex_solves)
+    cases.update(e_cases)
+    attn += e_attn
+    ssd += e_ssd
+
     # phase 3b: the solver kernels at the main path's captured round
     solver_rows_, _, solver_err = solver_phase(torch, capture.seen)
     solver_err["jcsba_population_kernel"] = max(
         solver_err["jcsba_population_kernel"], v_err)
     max_err.update(solver_err)
-    for k, v in m_err.items():
+    for k, v in list(m_err.items()) + list(e_err.items()):
         max_err[k] = max(max_err[k], v)
 
     # phase 4: times
@@ -3598,8 +3805,14 @@ def main() -> int:
           + f" ({card})")
     times = timing_phase(torch, ops, ref, cases)
     bb_times = backbone_timing_phase(torch, attn, ssd)
-    bb_times.update(solver_timing_phase(torch, solver_rows_ + m_rows,
-                                        m_bmin))
+    # the examples' population rows at shapes no other phase timed
+    def pop_shape(r):
+        return tuple(r[2].shape), r[1]["zeta2"].shape[0], r[5]
+
+    timed = {pop_shape(r) for r in solver_rows_ + m_rows}
+    e_rows = [r for r in e_rows if pop_shape(r) not in timed]
+    bb_times.update(solver_timing_phase(torch, solver_rows_ + m_rows
+                                        + e_rows, m_bmin + e_bmin))
 
     def entry(name):
         rows = (bb_times[name] if name in bb_times else
@@ -3612,7 +3825,8 @@ def main() -> int:
             # loop's, the fused loop's and the four timed scenario grids'
             # (captured times replays), the serve runs' (the MoE serve
             # included), the continuous server's, the train steps'
-            # (``[train]``) and the multi-device phase's (``[mesh]``)
+            # (``[train]``), the multi-device phase's (``[mesh]``) and the
+            # examples' twins' (``[examples]``)
             "launches_by_path": {"batched": launches[name],
                                  **{p: c.get(name, 0)
                                     for p, c in by_path.items()}},

@@ -20,6 +20,8 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
+from .. import dtensor_layouts as DL
+
 
 def _float(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
@@ -43,8 +45,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """
     lg = _float(logits)
     lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
-    ce = lse - gold
+    ce = lse - DL.gold_logit(lg, labels)
     if sample_mask is None:
         return ce.mean()
     w = torch.broadcast_to(_avail(sample_mask, ce), ce.shape)

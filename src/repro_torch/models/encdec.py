@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import dtensor_layouts as DL
 from ..core.trees import tree_map
 from ..device import resolve_device
 from . import layers as L
@@ -42,16 +43,17 @@ def cross_attention_fwd(p, x, src, cfg: ModelConfig, *, chunk: int = 1024):
     K, B, Sq, _ = x.shape
     Sk = src.shape[2]
     hd, H, KH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = L.dense(p["wq"], x).reshape(K, B, Sq, H, hd)
-    k = L.dense(p["wk"], src).reshape(K, B, Sk, KH, hd)
-    v = L.dense(p["wv"], src).reshape(K * B, Sk, KH, hd)
+    q = DL.split_heads(L.dense(p["wq"], x), H).reshape(K, B, Sq, H, hd)
+    k = DL.split_heads(L.dense(p["wk"], src), KH).reshape(K, B, Sk, KH, hd)
+    v = DL.split_heads(L.dense(p["wv"], src), KH).reshape(K * B, Sk, KH,
+                                                         hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     o = L.chunked_attention(q.reshape(K * B, Sq, H, hd),
                             k.reshape(K * B, Sk, KH, hd), v, window=None,
                             chunk=min(chunk, Sq), causal=False)
-    return L.dense(p["wo"], o.reshape(K, B, Sq, H * hd))
+    return L.dense(p["wo"], DL.pin(o.reshape(K, B, Sq, H * hd)))
 
 
 def _zeros(gen, dt):
@@ -125,7 +127,7 @@ def encode(params, src_embeds, cfg: ModelConfig, *, attn_chunk: int = 1024):
         a = L.chunked_attention(q, k, v, window=None,
                                 chunk=min(attn_chunk, S), causal=False)
         h = h + L.dense(bp["attn"]["wo"],
-                        a.reshape(1, B, S, cfg.n_heads * cfg.hd))
+                        DL.pin(a.reshape(1, B, S, cfg.n_heads * cfg.hd)))
         h = h + L.mlp(bp["mlp"], L.rms_norm(h, bp["norm2"], cfg.norm_eps))
     return _norm(h, params["enc_norm"], cfg)[0]
 
@@ -142,7 +144,7 @@ def decode_fwd(params, tokens, enc_out, cfg: ModelConfig, *,
     of float32 features under bfloat16 params would turn the stream
     float32, which the JAX package's decoder scan refuses (its carry
     keeps one type)."""
-    h = params["embed"][tokens][None]
+    h = DL.lookup(params["embed"], tokens)[None]
     src = enc_out[None].to(h.dtype)
     for i in range(cfg.n_layers):
         bp = _layer(params["dec_blocks"], i)
@@ -196,7 +198,7 @@ def cross_kv(params, enc_out, cfg: ModelConfig):
         y = torch.einsum("bsd,ldo->lbso", enc_out, wp["w"])
         if "b" in wp:
             y = y + wp["b"][:, None, None, :]
-        return y.reshape(nL, B, Ssrc, KH, hd)
+        return DL.split_heads(y, KH).reshape(nL, B, Ssrc, KH, hd)
 
     return proj(ca["wk"]), proj(ca["wv"])
 
@@ -211,7 +213,7 @@ def prefill_with_cache(params, tokens, enc_out, cache, cfg: ModelConfig, *,
     ``cross_v`` filled (``cross_kv``).  Returns (logits [B, V], cache)
     ready for ``decode_step(..., index=S)``.  ``impl="pallas"`` runs the
     causal self-attention through the flash-attention kernel on a card."""
-    h = params["embed"][tokens][None]
+    h = DL.lookup(params["embed"], tokens)[None]
     S = h.shape[2]
     src = enc_out[None]
     for i in range(cfg.n_layers):
@@ -235,7 +237,7 @@ def decode_step(params, cache, token, index, cfg: ModelConfig):
     """One decoder token against the self cache and the precomputed cross
     K/V.  Returns (logits [B, 1, V], cache), the self cache written in
     place."""
-    x = params["embed"][token][None]                          # [1, B, 1, D]
+    x = DL.lookup(params["embed"], token)[None]                # [1, B, 1, D]
     hd, H, KH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     R = H // KH
     B = x.shape[1]
@@ -250,7 +252,8 @@ def decode_step(params, cache, token, index, cfg: ModelConfig):
         h = h + a
         # cross attention against the precomputed K/V (no mask)
         c = L.rms_norm(h, bp["norm_x"], cfg.norm_eps)
-        q = L.dense(bp["cross_attn"]["wq"], c).reshape(B, 1, KH, R, hd)
+        q = DL.split_heads(L.dense(bp["cross_attn"]["wq"], c), KH) \
+            .reshape(B, 1, KH, R, hd)
         qh = q.permute(0, 2, 3, 1, 4)
         kh = cache["cross_k"][i].permute(0, 2, 1, 3)
         vh = cache["cross_v"][i].permute(0, 2, 1, 3)

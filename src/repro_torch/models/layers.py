@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import dtensor_layouts as DL
 from ..kernels.flash_attention import ops as fa_ops
 from .config import ModelConfig
 
@@ -148,9 +149,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     """x [K, B, S, D] -> q [K·B, S, H, hd], k/v [K·B, S, KH, hd]."""
     K, B, S, _ = x.shape
     hd, H, KH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = dense(p["wq"], x).reshape(K, B, S, H, hd)
-    k = dense(p["wk"], x).reshape(K, B, S, KH, hd)
-    v = dense(p["wv"], x).reshape(K, B, S, KH, hd)
+    q = DL.split_heads(dense(p["wq"], x), H).reshape(K, B, S, H, hd)
+    k = DL.split_heads(dense(p["wk"], x), KH).reshape(K, B, S, KH, hd)
+    v = DL.split_heads(dense(p["wv"], x), KH).reshape(K, B, S, KH, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -183,6 +184,8 @@ def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024,
     every key, as the Whisper encoder and the cross-attention do.
 
     q: [B, Sq, H, hd], k/v: [B, Sk, KH, hd].  Returns [B, Sq, H, hd]."""
+    # a DTensor's contractions below see operands split along the batch
+    q, k, v = (DL.batch_split(t) for t in (q, k, v))
     B, Sq, H, hd = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     R = H // KH
@@ -210,8 +213,7 @@ def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024,
         # sliding window: q chunk [t0, t0+chunk) sees keys
         # [t0-window+1, t0+chunk)
         w = window
-        kp = F.pad(kg, (0, 0, w, 0))
-        vp = F.pad(vg, (0, 0, w, 0))
+        kp, vp = DL.pad_left(kg, w, 2), DL.pad_left(vg, w, 2)
         span = w + chunk
         for t0 in range(0, Sq, chunk):
             qpos = t0 + torch.arange(chunk, device=dev)
@@ -269,7 +271,8 @@ def attention_prefill(p, x, cfg: ModelConfig, *, window: Optional[int],
         o = pallas_attention(q, k, v, window, min(chunk, S))
     else:
         o = chunked_attention(q, k, v, window=window, chunk=min(chunk, S))
-    return dense(p["wo"], o.reshape(K, B, S, cfg.n_heads * cfg.hd)), k, v
+    o = DL.pin(o.reshape(K, B, S, cfg.n_heads * cfg.hd))
+    return dense(p["wo"], o), k, v
 
 
 def attention_fwd(p, x, cfg: ModelConfig, *, window: Optional[int],
@@ -335,8 +338,8 @@ def attention_decode(p, x, cache: dict, index, cfg: ModelConfig, *,
     size = cache["k"].shape[1]
     slot = torch.remainder(index, size).reshape(1)
     ck, cv = cache["k"], cache["v"]
-    ck.index_copy_(1, slot, k.to(ck.dtype))
-    cv.index_copy_(1, slot, v.to(cv.dtype))
+    DL.write_slot(ck, slot, k)
+    DL.write_slot(cv, slot, v)
 
     kpos = torch.arange(size, device=dev)
     if window is None:
@@ -349,7 +352,8 @@ def attention_decode(p, x, cache: dict, index, cfg: ModelConfig, *,
         valid = ((abs_pos >= 0) & (abs_pos >= index - size + 1)
                  & (abs_pos <= index))
     n = K * B
-    qh = q.reshape(n, 1, KH, R, hd).permute(0, 2, 3, 1, 4)   # [n,KH,R,1,hd]
+    qh = DL.split_heads(q, KH, dim=2).reshape(n, 1, KH, R, hd) \
+        .permute(0, 2, 3, 1, 4)                              # [n,KH,R,1,hd]
     kh = ck.permute(0, 2, 1, 3)                              # [n,KH,size,hd]
     vh = cv.permute(0, 2, 1, 3)
     s = torch.einsum("bgrqh,bgkh->bgrqk", qh, kh).float() / math.sqrt(hd)

@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import dtensor_layouts as DL
 from ..kernels.ssd_scan import ops as ssd_ops
 from .config import ModelConfig
 from .layers import gen_device, kmm, per_client, randn, rms_norm
@@ -65,7 +66,7 @@ def _causal_conv(x, w, b=None):
     """Depthwise causal conv over S with a left zero pad, then silu.
     x: [K, B, S, C], w: [K, taps, C], b: [K, C]."""
     taps, S = w.shape[1], x.shape[2]
-    xp = F.pad(x, (0, 0, taps - 1, 0))
+    xp = DL.pad_left(x, taps - 1, 2)
     out = sum(xp[:, :, i:i + S, :] * w[:, None, None, i, :]
               for i in range(taps))
     if b is not None:
@@ -85,6 +86,11 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     recurrence's last carry, the state S sequential ``mamba_decode`` steps
     reach (the prefill's cache export).
     """
+    # as in ``chunked_attention``: a DTensor's chunk contractions see
+    # operands split along the batch only
+    x, dt, Bm, Cm = (DL.batch_split(t) for t in (x, dt, Bm, Cm))
+    if A.dim() == 2:
+        A = DL.batch_split(A)
     Bsz, S, nh, hp = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -100,7 +106,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     Cc = Cm.float().reshape(Bsz, nc, Q, N)
 
     # --- intra-chunk (diagonal blocks) ---
-    cum = torch.cumsum(dAc, dim=2)                                # [B,nc,Q,nh]
+    cum = DL.prefix_sum(dAc, dim=2)                               # [B,nc,Q,nh]
     # decay matrix L[t,s] = exp(cum_t - cum_s), lower-triangular.  Mask the
     # EXPONENT (not the exp): upper-triangle diffs are large and positive,
     # exp overflows to inf, and 0*inf poisons the backward pass.
@@ -127,7 +133,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     # --- inter-chunk contribution: y_off[t] = C_t · (exp(cum_t) * h_prev) ---
     in_decay = torch.exp(cum)                                     # [B,nc,Q,nh]
     y_off = torch.einsum("bctn,bcth,bchnp->bcthp", Cc, in_decay, h_prev)
-    y = (y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype)
+    y = DL.pin((y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype))
     return (y, h) if return_state else y
 
 
@@ -250,7 +256,7 @@ def _conv_tail(raw, taps: int):
     S = raw.shape[2]
     t = raw[:, :, max(S - (taps - 1), 0):, :]
     pad = (taps - 1) - t.shape[2]
-    return F.pad(t, (0, 0, pad, 0)) if pad else t
+    return DL.pad_left(t, pad, 2) if pad else t
 
 
 def mamba_prefill(p, u, cfg: ModelConfig, *, impl: str = "pallas"):

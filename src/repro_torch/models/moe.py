@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import dtensor_layouts as DL
 from .config import ModelConfig
 from .layers import init_dense, mlp, randn
 
@@ -83,6 +84,16 @@ def _dispatch_group(x, logits, k: int, capacity: int):
     return xe, st, sg, keep, dest, counts, probs
 
 
+def _combine(y, st, sg, keep, dest, Tg: int):
+    """The experts' outputs y [E, C, D] back to the group's tokens
+    [Tg, D], gate-weighted (dropped pairs add zeros)."""
+    E, C, D = y.shape
+    yf = y.reshape(E * C, D)
+    contrib = yf[torch.clamp_max(dest, E * C - 1)] * \
+        (sg * keep.float())[:, None].to(y.dtype)
+    return y.new_zeros((Tg, D)).index_add(0, st, contrib)
+
+
 def moe_apply(p, x, cfg: ModelConfig, *, n_groups: int = 1):
     """x: [B, S, D] -> (y [B, S, D], aux_loss 0-d f32)."""
     B, S, D = x.shape
@@ -93,19 +104,20 @@ def moe_apply(p, x, cfg: ModelConfig, *, n_groups: int = 1):
     Tg = T // n_groups
     capacity = max(int(math.ceil(k * Tg / E * cfg.capacity_factor)), 1)
 
+    x = DL.batch_split(x, n_groups)     # a group takes whole batch rows
     xf = x.reshape(n_groups, Tg, D)
     logits = xf.float() @ p["router"]
     ys, auxs = [], []
     for g in range(n_groups):
-        xe, st, sg, keep, dest, counts, probs = _dispatch_group(
-            xf[g], logits[g], k, capacity)
+        # a DTensor group is routed whole on every rank (``DL.whole``)
+        xe, st, sg, keep, dest, counts, probs = DL.whole(
+            lambda xg, lg: _dispatch_group(xg, lg, k, capacity),
+            xf[g], logits[g])
         h = torch.bmm(xe, p["wg"])
         u = torch.bmm(xe, p["wu"])
         y = torch.bmm(F.silu(h) * u, p["wd"])
-        yf = y.reshape(E * capacity, D)
-        contrib = yf[torch.clamp_max(dest, E * capacity - 1)] * \
-            (sg * keep.float())[:, None].to(y.dtype)
-        ys.append(y.new_zeros((Tg, D)).index_add(0, st, contrib))
+        ys.append(DL.whole(lambda *a: _combine(*a, Tg), y, st, sg, keep,
+                           dest))
         # Switch-style load balance: E · Σ_e f_e · P_e
         frac = counts.float() / (Tg * k)
         auxs.append(E * torch.sum(frac * probs.mean(dim=0)))

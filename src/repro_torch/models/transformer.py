@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import dtensor_layouts as DL
 from ..core.trees import tree_map
 from ..device import resolve_device
 from . import layers as L
@@ -151,13 +152,18 @@ def apply_layer_decode(p, x, cache, index, cfg: ModelConfig,
 # whole stack (per-client stacks)
 # ----------------------------------------------------------------------------
 def backbone(params, x, cfg: ModelConfig, *, n_groups: int = 1,
-             attn_chunk: int = 1024, remat: bool = False, impl: str = "xla"):
+             attn_chunk: int = 1024, residual_spec=None, remat: bool = False,
+             impl: str = "xla"):
     """x: [K, B, S, D] embeddings -> (hidden [K, B, S, D] after the final
     norm, MoE aux summed over the layers).  ``params["blocks"]`` leaves are
-    [K, n_blocks, ...].  ``remat``: activation-checkpoint each
-    super-block.  ``impl="pallas"``: route the attention/SSD mixers
-    through the kernels (differentiable — the backward recomputes through
-    the plain path)."""
+    [K, n_blocks, ...].  ``residual_spec``: the DTensor placements of the
+    [K, B, S, D] stream, set on entry and after every super-block
+    (``dtensor_layouts.constrain``; the dry run's batch-over-data stream,
+    or its ``residual=seq_model`` lever's sequence-over-model one); a
+    plain stream is left as it is.  ``remat``: activation-checkpoint each
+    super-block.
+    ``impl="pallas"``: route the attention/SSD mixers through the kernels
+    (differentiable — the backward recomputes through the plain path)."""
     pattern = cfg.block_pattern()
 
     def add(aux, a):
@@ -169,9 +175,10 @@ def backbone(params, x, cfg: ModelConfig, *, n_groups: int = 1,
             h, a = apply_layer(bp[f"l{i}"], h, cfg, spec, n_groups=n_groups,
                                attn_chunk=attn_chunk, impl=impl)
             aux = add(aux, a)
-        return h, aux
+        return DL.constrain(h, residual_spec), aux
 
     aux = None
+    x = DL.constrain(x, residual_spec)
     for n in range(cfg.n_blocks):
         bp = tree_map(lambda t: t[:, n], params["blocks"])
         # no torch random bits in a block (dropout is a counter hash), so
@@ -212,7 +219,7 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig):
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
-    return params["embed"][tokens]
+    return DL.lookup(params["embed"], tokens)
 
 
 def unembed(params, h, cfg: ModelConfig):
@@ -241,8 +248,7 @@ def forward(params, tokens, cfg: ModelConfig, *, n_groups: int = 1,
 def lm_loss(logits, labels, mask=None):
     """Mean next-token CE in fp32.  logits [B, S, V], labels [B, S]."""
     lg = logits.float()
-    nll = (torch.logsumexp(lg, dim=-1)
-           - torch.gather(lg, -1, labels[..., None].long())[..., 0])
+    nll = torch.logsumexp(lg, dim=-1) - DL.gold_logit(lg, labels)
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
@@ -258,8 +264,7 @@ def chunked_lm_loss(params, h, labels, cfg: ModelConfig, chunk: int):
     tot = h.new_zeros((), dtype=torch.float32)
     for t0 in range(0, S, chunk):
         lg = unembed(params, h[:, t0:t0 + chunk], cfg).float()
-        gold = torch.gather(lg, -1,
-                            labels[:, t0:t0 + chunk, None].long())[..., 0]
+        gold = DL.gold_logit(lg, labels[:, t0:t0 + chunk])
         tot = tot + (torch.logsumexp(lg, dim=-1) - gold).sum()
     return tot / (B * S)
 

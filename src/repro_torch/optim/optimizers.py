@@ -26,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from .. import dtensor_layouts as DL
 from ..core.trees import tree_leaves, tree_map
 
 
@@ -164,7 +165,7 @@ def adafactor(lr, eps: float = 1e-30, clip_threshold: float = 1.0,
                 vhat = v.clone()
                 newf = {"v": v}
             # u = g · rsqrt(vhat + eps), in vhat's buffer
-            u = vhat.add_(eps).rsqrt_().mul_(g32)
+            u = DL.scaled_rsqrt(vhat, eps, g32)
             del g32
             rms = torch.sqrt(u.square().mean() + eps)
             u.div_(torch.clamp_min(rms / clip_threshold, 1.0))
