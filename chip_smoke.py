@@ -119,13 +119,16 @@ Phases, each of which fails the run when it fails:
    on K and K/2 rows, the population kernel at K=5000 (timed in phase 4);
 8. ``[dryrun]`` and ``[examples]``: ``python -m repro_torch.launch.dryrun
    --device cuda`` on the fake 16x16 mesh for qwen3-0.6b train_4k and
-   decode_32k and llama4-scout-17b-a16e train_4k (one subprocess each, all
-   started together, cut to 2 super-blocks; no kernel — the step runs
-   ``impl="xla"`` on fake tensors), each combo's status, counted FLOPs
-   and bytes a rank and collective bytes printed and its status held to
-   the CPU's; meanwhile each twin of ``examples/*.py`` (``examples/torch``)
-   runs here on the card at small arguments with the counters set to 0
-   just before it, and fails if a kernel of its path was not launched
+   decode_32k, llama4-scout-17b-a16e train_4k, gemma3-12b long_500k and
+   jamba-v0.1-52b train_4k (one subprocess each, all started together,
+   cut to 2 super-blocks; no kernel — the step runs ``impl="xla"`` on
+   fake tensors), each combo's status, counted FLOPs and bytes a rank,
+   global / per-rank FLOPs, temporary peak a rank and collective bytes
+   printed, its status held to the CPU's and llama4-scout's global /
+   per-rank FLOPs to at least 200 (the MoE dispatch split over ranks);
+   meanwhile each twin of ``examples/*.py`` (``examples/torch``) runs
+   here on the card at small arguments with the counters set to 0 just
+   before it, and fails if a kernel of its path was not launched
    (the JSON line's ``"examples"`` path); the operands each twin hands
    the kernels (the first of each shape, and its first JCSBA solve) are
    recorded, and every kernel is held against its plain version at them
@@ -349,7 +352,12 @@ TOL_GRAPH = 1e-6
 #: (README's table of statuses)
 DRYRUN_COMBOS = (("qwen3-0.6b", "train_4k", "ok"),
                  ("qwen3-0.6b", "decode_32k", "ok"),
-                 ("llama4-scout-17b-a16e", "train_4k", "ok"))
+                 ("llama4-scout-17b-a16e", "train_4k", "ok"),
+                 ("gemma3-12b", "long_500k", "ok"),
+                 ("jamba-v0.1-52b", "train_4k", "ok"))
+#: the least global / per-rank counted FLOPs of a combo (256 is an even
+#: split of the 16x16 mesh)
+DRYRUN_MIN_SPLIT = {("llama4-scout-17b-a16e", "train_4k"): 200}
 DRYRUN_BLOCKS = 2
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
 DRYRUN_TIMEOUT = 600
@@ -3512,16 +3520,26 @@ def dryrun_finish(started, card):
             with open(os.path.join(DRYRUN_DIR, tag + ".json")) as f:
                 rec = json.load(f)
             coll = rec.get("collectives", {})
+            split = (rec.get("counted_flops_global", 0)
+                     / max(rec.get("counted_flops_per_rank", 0), 1))
             print(f"[dryrun] {tag}: {rec['status']} step "
                   f"{rec.get('step_s')} s; counted flops a rank "
                   f"{rec.get('counted_flops_per_rank')} (global "
-                  f"{rec.get('counted_flops_global')}); argument bytes a "
-                  f"rank {rec.get('argument_size_in_bytes')}; collective "
+                  f"{rec.get('counted_flops_global')}, global / per-rank "
+                  f"{split}); counted bytes a rank "
+                  f"{rec.get('counted_bytes_per_rank')}; temporary peak a "
+                  f"rank {rec.get('counted_peak_bytes_per_rank')} bytes; "
+                  f"argument bytes a rank "
+                  f"{rec.get('argument_size_in_bytes')}; collective "
                   f"operand bytes {coll.get('total_operand_bytes')} "
                   f"{coll.get('op_counts')}")
             if rec["status"] != want:
                 bad.append(f"dryrun {tag}: {rec['status']} on the card, "
                            f"{want} on the CPU: {rec.get('error')}")
+            least = DRYRUN_MIN_SPLIT.get((arch, shape))
+            if least and rec["status"] == "ok" and split < least:
+                bad.append(f"dryrun {tag}: global / per-rank flops {split} "
+                           f"< {least}")
     finally:
         for p in procs:
             if p.poll() is None:

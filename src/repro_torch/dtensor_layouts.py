@@ -45,20 +45,46 @@ def pin(t: torch.Tensor) -> torch.Tensor:
         else t
 
 
-def split_heads(t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+def _moved_split(t: torch.Tensor, mesh_dims, dim: Optional[int],
+                 n: Optional[int] = None) -> list:
+    """``t``'s placements with each mesh dim of ``mesh_dims`` splitting
+    ``dim`` where the split of ``dim`` so far times its size still divides
+    ``n`` (default: ``dim``'s size), else replicating (``dim`` None: all
+    replicate)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pls = t.device_mesh, list(t.placements)
+    if dim is not None:
+        dim %= t.dim()
+        n = t.shape[dim] if n is None else n
+    have = math.prod(mesh.size(i) for i, pl in enumerate(pls)
+                     if i not in mesh_dims and dim is not None
+                     and pl.is_shard(dim))
+    for i in mesh_dims:
+        if dim is not None and n % (have * mesh.size(i)) == 0:
+            have *= mesh.size(i)
+            pls[i] = Shard(dim)
+        else:
+            pls[i] = Replicate()
+    return pls
+
+
+def split_heads(t: torch.Tensor, n: int, dim: int = -1,
+                batch: Optional[int] = None) -> torch.Tensor:
     """``t`` ready to view its ``dim`` as [n, ...]: a DTensor whose
     ``dim`` is split over more ranks than divide ``n`` is replicated over
     them first (KV heads fewer than the model axis: every rank holds them
-    all, as Megatron replicates KV heads); anything else as it is."""
+    all, as Megatron replicates KV heads), or, given a ``batch`` dim that
+    the split still divides, split along ``batch`` instead (query heads
+    that do not divide the model axis, as llama4-scout's 40: the ranks
+    take other sequences rather than all repeat the same attention);
+    anything else as it is."""
     if not is_dtensor(t):
         return t
-    from torch.distributed.tensor import Replicate
     mesh, dim = t.device_mesh, dim % t.dim()
     split = [i for i, pl in enumerate(t.placements) if pl.is_shard(dim)]
     if n % math.prod(mesh.size(i) for i in split) == 0:
         return t
-    return t.redistribute(mesh, [Replicate() if i in split else pl
-                                 for i, pl in enumerate(t.placements)])
+    return t.redistribute(mesh, _moved_split(t, split, batch))
 
 
 def batch_split(t: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
@@ -70,21 +96,26 @@ def batch_split(t: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     operands split along the batch only.  Anything else as it is."""
     if not is_dtensor(t):
         return t
-    from torch.distributed.tensor import Replicate, Shard
-    n = t.shape[0] if n is None else n
-    mesh, pls = t.device_mesh, list(t.placements)
-    split = 1
-    for i, pl in enumerate(pls):
-        if not pl.is_shard():
-            continue
-        if n % (split * mesh.size(i)) == 0:
-            split *= mesh.size(i)
-            pls[i] = Shard(0)
-        else:
-            pls[i] = Replicate()
+    pls = _moved_split(t, [i for i, pl in enumerate(t.placements)
+                           if pl.is_shard()], 0, n)
     if tuple(pls) == tuple(t.placements):
         return t
-    return t.redistribute(mesh, pls)
+    return t.redistribute(t.device_mesh, pls)
+
+
+def fsdp_gather(w: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
+    """A DTensor weight ``w`` gathered over each mesh dim that splits
+    ``by``'s dim 0 (the batch of the tokens ``w`` meets), its other
+    placements kept: FSDP's gather of a weight before its use, so each
+    rank's GEMMs take its own rows whole and no gradient comes back as a
+    partial sum the backward would meet with the weight gathered whole
+    anyway.  Anything else as it is."""
+    if not is_dtensor(w) or not is_dtensor(by):
+        return w
+    from torch.distributed.tensor import Replicate
+    pls = [Replicate() if b.is_shard(0) else pl
+           for pl, b in zip(w.placements, by.placements)]
+    return constrain(w, pls)
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -119,6 +150,48 @@ def gold_logit(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         return torch.gather(lg, -1, idx)[..., 0]
     hit = torch.arange(lg.shape[-1], device=lg.device) == idx
     return torch.where(hit, lg, lg.new_zeros(())).sum(-1)
+
+
+def reduce_partial(t: torch.Tensor, dim: Optional[int] = None
+                   ) -> torch.Tensor:
+    """A DTensor with each partial mesh dim reduced: scattered along
+    ``dim`` where ``dim``'s split so far times the mesh dim's size divides
+    it (a reduce-scatter), else all-reduced (over that mesh dim alone;
+    DTensor's own plan for a later op may gather a dim another mesh dim
+    splits first); anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    partial = [i for i, pl in enumerate(t.placements) if pl.is_partial()]
+    if not partial:
+        return t
+    return t.redistribute(t.device_mesh, _moved_split(t, partial, dim))
+
+
+def argmax(lg: torch.Tensor) -> torch.Tensor:
+    """``lg.argmax(-1)``.  On a DTensor it is the first index that holds
+    the maximum, from a max and a min over the last dim, each reduced
+    across the ranks that split it: DTensor's own argmax gathers every
+    rank's winner, a view that fails on a [1, 1, V] split over ranks."""
+    if not is_dtensor(lg):
+        return lg.argmax(-1)
+    lg = reduce_partial(lg)
+    n = lg.shape[-1]
+    top = reduce_partial(lg.amax(-1, keepdim=True))
+    pos = torch.arange(n, device=lg.device)
+    return reduce_partial(torch.where(lg == top, pos, n).amin(-1))
+
+
+def softmax(s: torch.Tensor) -> torch.Tensor:
+    """``torch.softmax(s, -1)``.  On a DTensor whose last dim is split
+    over ranks it is the softmax of the split dim: each rank's max and sum
+    of exponentials reduced across the ranks (two all-reduces of one value
+    a row), never the scores gathered whole."""
+    if not is_dtensor(s) or not any(pl.is_shard(s.dim() - 1)
+                                    for pl in s.placements):
+        return torch.softmax(s, dim=-1)
+    s = reduce_partial(s)
+    e = torch.exp(s - reduce_partial(s.amax(-1, keepdim=True)))
+    return e / reduce_partial(e.sum(-1, keepdim=True))
 
 
 def pad_left(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
@@ -159,22 +232,35 @@ def write_slot(buf: torch.Tensor, slot: torch.Tensor,
     buf.copy_(torch.where(hit, new.to(buf.dtype), buf))
 
 
-def whole(fn, *args):
-    """``fn(*args)``.  DTensor arguments are gathered whole on every rank
-    first and ``fn`` runs on their local tensors, its tensor results
-    coming back as replicated DTensors: the MoE capacity dispatch's index
-    ops (top-k, sorts, scatters and gathers by index) have no sharding
-    rule in every torch release, so each rank routes the whole group."""
+def by_group(fn, *args):
+    """``fn(*args)``, ``fn`` mapping tensors whose dim 0 counts groups to
+    a tuple of such tensors.  On DTensors each rank runs ``fn`` on its own
+    groups, as JAX's ``vmap`` over groups split over the data axes runs:
+    every DTensor argument is laid out as the first one's dim 0 is split
+    (dim 0 over those mesh dims, replicated over the others), ``fn`` runs
+    on the local tensors, and its results come back as DTensors laid out
+    the same, their gradients too.  The MoE capacity dispatch's index ops
+    (top-k, sorts, scatters and gathers by index) have no sharding rule in
+    every torch release, and need none there: a group lies whole on the
+    ranks that hold it."""
     if not any(is_dtensor(a) for a in args):
         return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate
-    mesh = next(a for a in args if is_dtensor(a)).device_mesh
-    rep = [Replicate()] * mesh.ndim
-    out = fn(*(a.redistribute(mesh, rep).to_local() if is_dtensor(a) else a
-               for a in args))
-    wrap = (lambda o: DTensor.from_local(o, mesh, rep, run_check=False)
-            if isinstance(o, torch.Tensor) else o)
-    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    first = next(a for a in args if is_dtensor(a))
+    mesh = first.device_mesh
+    pls = [Shard(0) if pl.is_shard(0) else Replicate()
+           for pl in first.placements]
+    split = math.prod(mesh.size(i) for i, pl in enumerate(pls)
+                      if pl.is_shard())
+    out = fn(*(a.redistribute(mesh, pls).to_local(grad_placements=pls)
+               if is_dtensor(a) else a for a in args))
+
+    def wrap(o):
+        shape = (o.shape[0] * split, *o.shape[1:])
+        return DTensor.from_local(o, mesh, pls, run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta")
+                                  .stride())
+    return tuple(map(wrap, out))
 
 
 def scaled_rsqrt(v: torch.Tensor, eps: float, g: torch.Tensor

@@ -31,7 +31,10 @@ sees the ops below DTensor, counts them:
 * ``collectives``: ``hlo_analysis.summarize`` of the collectives DTensor
   issued (``collect``);
 * ``argument_size_in_bytes``/``output_size_in_bytes``: rank 0's shard
-  bytes of the step's arguments and outputs.
+  bytes of the step's arguments and outputs;
+* ``counted_peak_bytes_per_rank``: the peak of the bytes held by the
+  storages rank 0's local ops made, collective results included, each
+  until its release (``StepCounter.peak_bytes``).
 
 Plain tensors the step makes (RoPE tables, masks) meet the DTensors as
 replicated ones (``implicit_replication``).  An op with no sharding rule
@@ -43,12 +46,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
 import sys
 import time
 import traceback
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -57,6 +62,7 @@ from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils._pytree import tree_flatten
 from torch.utils._pytree import tree_map as pt_map
 from torch.utils.flop_counter import flop_registry
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..configs import ARCHS, get_config
 from ..core.trees import tree_leaves, tree_map
@@ -140,6 +146,12 @@ _NOT_ACCESSED = {torch.ops.aten.detach, torch.ops.aten.alias,
                  torch.ops._c10d_functional.wait_tensor}
 
 
+# a collective's result handed on (a fake tensor gives it a storage anew)
+_SAME_RESULT = {getattr(torch.ops._c10d_functional, name)
+                for name in ("wait_tensor", "_wrap_tensor_autograd")
+                if hasattr(torch.ops._c10d_functional, name)}
+
+
 class StepCounter(CommDebugMode):
     """``CommDebugMode`` that also counts rank 0's local work.
 
@@ -147,19 +159,64 @@ class StepCounter(CommDebugMode):
     unsharded shapes and returns ``NotImplemented``, so DTensor runs it as
     local ops and collectives, which reach the mode next.  Each collective
     is logged as (op name, result bytes, group size, mesh axis) in
-    ``log``."""
+    ``log``.
+
+    ``live_bytes``/``peak_bytes``: the bytes of the storages that local ops
+    made (collective results included), each from the op that made it
+    until it is released — a weak reference to the storage, as
+    ``MemTracker`` keeps; an op's result in a storage seen before (a view,
+    an in-place update, an argument passed to ``exclude``) adds nothing."""
 
     def __init__(self, mesh=None):
         super().__init__()
         self.flops_local = 0
         self.flops_global = 0
         self.bytes_local = 0
+        self.live_bytes = 0
+        self.peak_bytes = 0
         self.log = []
+        self._storages = WeakIdKeyDictionary()
         self._groups = {}
         if mesh is not None:
             for name in axis_names(mesh):
                 self._groups[mesh.get_group(name).group_name] = (
                     name, axis_sizes(mesh)[name])
+
+    def exclude(self, tree) -> None:
+        """Count no storage of ``tree``'s tensors (a DTensor's local
+        shard): the step's arguments."""
+        for t in tree_flatten(tree)[0]:
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            if isinstance(t, torch.Tensor):
+                self._storages.setdefault(t.untyped_storage(), (0, None))
+
+    def _made(self, out) -> None:
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                if st not in self._storages:
+                    self._hold(st, st.nbytes())
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _moved(self, src: torch.Tensor, out: torch.Tensor) -> None:
+        """``out`` is ``src`` (a collective's result handed on; a fake
+        tensor gives it a storage anew): the bytes follow ``out``'s
+        storage."""
+        n, ref = self._storages.get(src.untyped_storage(), (0, None))
+        if ref is None or out.untyped_storage() in self._storages:
+            return
+        self._storages[src.untyped_storage()] = (0, None)  # drops the ref
+        self.live_bytes -= n
+        self._hold(out.untyped_storage(), n)
+
+    def _hold(self, st, n: int) -> None:
+        self._storages[st] = (n, weakref.ref(st, functools.partial(
+            self._released, n)))
+        self.live_bytes += n
+
+    def _released(self, n: int, _ref) -> None:
+        self.live_bytes -= n
 
     def _group(self, args):
         name = next((a for a in reversed(args) if isinstance(a, str)), None)
@@ -181,6 +238,10 @@ class StepCounter(CommDebugMode):
         if _in_sharding_propagation():
             return out
         pk = func._overloadpacket
+        if pk in _SAME_RESULT:
+            self._moved(args[0], out)
+        else:
+            self._made(out)
         self.flops_local += _flops(func, args, kwargs, out)
         if pk in self.comm_registry:
             axis, g = self._group(args)
@@ -337,6 +398,7 @@ def analyse(fn, args, info) -> dict:
     from torch.distributed.tensor.experimental import implicit_replication
     out = dict(info)
     counter = StepCounter(tree_leaves(args[0])[0].device_mesh)
+    counter.exclude(args)
     t0 = time.perf_counter()
     with implicit_replication(), counter:
         result = fn(*args)
@@ -346,6 +408,7 @@ def analyse(fn, args, info) -> dict:
     out["counted_flops_per_rank"] = counter.flops_local
     out["counted_flops_global"] = counter.flops_global
     out["counted_bytes_per_rank"] = counter.bytes_local
+    out["counted_peak_bytes_per_rank"] = counter.peak_bytes
     out["collectives"] = hlo_analysis.summarize(collect(counter.log))
     return out
 

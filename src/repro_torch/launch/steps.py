@@ -22,6 +22,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import dtensor_layouts as DL
 from ..core import fusion
 from ..core.trees import tree_leaves, tree_map
 from ..kernels.fusion_loss.ops import fused_multimodal_loss
@@ -224,7 +225,7 @@ def make_serve_step(cfg: ModelConfig):
 
     def serve_step(params, cache, token, index):
         logits, cache = step(params, cache, token, index, cfg)
-        return logits.argmax(-1), cache
+        return DL.argmax(logits), cache
     return serve_step
 
 

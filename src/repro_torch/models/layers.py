@@ -149,7 +149,7 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     """x [K, B, S, D] -> q [K·B, S, H, hd], k/v [K·B, S, KH, hd]."""
     K, B, S, _ = x.shape
     hd, H, KH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = DL.split_heads(dense(p["wq"], x), H).reshape(K, B, S, H, hd)
+    q = DL.split_heads(dense(p["wq"], x), H, batch=1).reshape(K, B, S, H, hd)
     k = DL.split_heads(dense(p["wk"], x), KH).reshape(K, B, S, KH, hd)
     v = DL.split_heads(dense(p["wv"], x), KH).reshape(K, B, S, KH, hd)
     if cfg.qk_norm:
@@ -358,7 +358,7 @@ def attention_decode(p, x, cache: dict, index, cfg: ModelConfig, *,
     vh = cv.permute(0, 2, 1, 3)
     s = torch.einsum("bgrqh,bgkh->bgrqk", qh, kh).float() / math.sqrt(hd)
     s = torch.where(valid, s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(vh.dtype)
+    w = DL.softmax(s).to(vh.dtype)
     o = torch.einsum("bgrqk,bgkh->bgrqh", w, vh)
     o = o.permute(0, 3, 1, 2, 4).reshape(K, B, 1, H * hd)
     return dense(p["wo"], o), cache

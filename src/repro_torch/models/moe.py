@@ -94,6 +94,50 @@ def _combine(y, st, sg, keep, dest, Tg: int):
     return y.new_zeros((Tg, D)).index_add(0, st, contrib)
 
 
+def _experts(p, xe):
+    """The experts' SwiGLU on their slots xe [E, C', D] -> [E, C', D]."""
+    h = torch.bmm(xe, p["wg"])
+    u = torch.bmm(xe, p["wu"])
+    return torch.bmm(F.silu(h) * u, p["wd"])
+
+
+def _aux(counts, probs, Tg: int, k: int):
+    """Switch-style load balance: E · Σ_e f_e · P_e."""
+    frac = counts.float() / (Tg * k)
+    return counts.shape[-1] * torch.sum(frac * probs.mean(dim=-2), dim=-1)
+
+
+def _split_dispatch(p, xf, logits, k: int, capacity: int):
+    """The DTensor form of the group loop: xf [G, Tg, D] and logits
+    [G, Tg, E] with the groups split over the data axes.  Each rank routes
+    its own groups (``DL.by_group``), as the JAX package's ``vmap`` over
+    groups does under XLA; the slots of all groups meet the experts as one
+    [E, G·C, D] batch, experts split over ``model`` as their weights are,
+    so a rank runs its own experts on its own groups' slots; the outputs
+    come back to the groups' ranks for the combine.  Returns (y [G, Tg,
+    D], the per-group aux losses [G])."""
+    G, Tg, D = xf.shape
+    E = logits.shape[-1]
+
+    def route(xl, ll):
+        outs = [_dispatch_group(xl[g], ll[g], k, capacity)
+                for g in range(xl.shape[0])]
+        xe, st, sg, keep, dest, counts, probs = map(torch.stack, zip(*outs))
+        return xe, st, sg, keep, dest, _aux(counts, probs, Tg, k)
+
+    xe, st, sg, keep, dest, aux = DL.by_group(route, xf, logits)
+    slots = xe.transpose(0, 1).reshape(E, G * capacity, D)
+    w = {n: DL.fsdp_gather(p[n], xf) for n in ("wg", "wu", "wd")}
+    y = _experts(w, slots).reshape(E, G, capacity, D).transpose(0, 1)
+
+    def combine(yl, stl, sgl, keepl, destl):
+        return (torch.stack([_combine(yl[g], stl[g], sgl[g], keepl[g],
+                                      destl[g], Tg)
+                             for g in range(yl.shape[0])]),)
+
+    return DL.by_group(combine, y, st, sg, keep, dest)[0], aux
+
+
 def moe_apply(p, x, cfg: ModelConfig, *, n_groups: int = 1):
     """x: [B, S, D] -> (y [B, S, D], aux_loss 0-d f32)."""
     B, S, D = x.shape
@@ -104,25 +148,26 @@ def moe_apply(p, x, cfg: ModelConfig, *, n_groups: int = 1):
     Tg = T // n_groups
     capacity = max(int(math.ceil(k * Tg / E * cfg.capacity_factor)), 1)
 
-    x = DL.batch_split(x, n_groups)     # a group takes whole batch rows
-    xf = x.reshape(n_groups, Tg, D)
+    # a DTensor stream still a partial sum over ``model`` (the attention's
+    # output projection) is scattered over the batch, where the shared
+    # expert takes it; a group takes whole batch rows
+    x = DL.reduce_partial(x, 0)
+    xg = DL.batch_split(x, n_groups)
+    xf = xg.reshape(n_groups, Tg, D)
     logits = xf.float() @ p["router"]
-    ys, auxs = [], []
-    for g in range(n_groups):
-        # a DTensor group is routed whole on every rank (``DL.whole``)
-        xe, st, sg, keep, dest, counts, probs = DL.whole(
-            lambda xg, lg: _dispatch_group(xg, lg, k, capacity),
-            xf[g], logits[g])
-        h = torch.bmm(xe, p["wg"])
-        u = torch.bmm(xe, p["wu"])
-        y = torch.bmm(F.silu(h) * u, p["wd"])
-        ys.append(DL.whole(lambda *a: _combine(*a, Tg), y, st, sg, keep,
-                           dest))
-        # Switch-style load balance: E · Σ_e f_e · P_e
-        frac = counts.float() / (Tg * k)
-        auxs.append(E * torch.sum(frac * probs.mean(dim=0)))
-    y = torch.stack(ys).reshape(B, S, D)
+    if DL.is_dtensor(xf):
+        y, aux = _split_dispatch(p, xf, logits, k, capacity)
+        y, aux = DL.pin(y.reshape(B, S, D)), aux.mean()
+    else:
+        ys, auxs = [], []
+        for g in range(n_groups):
+            xe, st, sg, keep, dest, counts, probs = _dispatch_group(
+                xf[g], logits[g], k, capacity)
+            ys.append(_combine(_experts(p, xe), st, sg, keep, dest, Tg))
+            auxs.append(_aux(counts, probs, Tg, k))
+        y, aux = torch.stack(ys).reshape(B, S, D), torch.stack(auxs).mean()
     if "shared" in p:
-        shared = {n: {"w": w["w"][None]} for n, w in p["shared"].items()}
+        shared = {n: {"w": DL.fsdp_gather(w["w"], x)[None]}
+                  for n, w in p["shared"].items()}
         y = y + mlp(shared, x[None])[0]
-    return y, torch.stack(auxs).mean()
+    return y, aux

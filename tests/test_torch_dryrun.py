@@ -12,7 +12,17 @@ dryrun}``) against the JAX package's.
   step on an 8-rank 4×2 fake mesh, and the depth calibration's corrected
   count against the full-depth count (a subprocess), and the command line
   on the 256-rank production mesh at one super-block (a subprocess);
-* the hill-climb levers leave the plain-tensor loss unchanged.
+* the hill-climb levers leave the plain-tensor loss unchanged;
+* the per-rank temporary peak against a hand count on a 2-rank mesh;
+* the combos that need the decode step's split softmax and the MoE
+  dispatch split over ranks (gemma3-12b and jamba-v0.1-52b long_500k,
+  jamba-v0.1-52b train_4k, llama4-scout-17b-a16e train_4k's per-rank
+  share) on the 256-rank production mesh at one super-block (a
+  subprocess);
+* the split dispatch's values: the MoE layer on DTensors of a real 2×2
+  gloo mesh (4 rank subprocesses) against the plain path on the same
+  numbers — output, the aux loss (the mean over all groups) and every
+  gradient.
 
 Fake groups of 2 and 4 ranks live in this process only for the test that
 needs them; a larger one is made in a subprocess.
@@ -212,6 +222,44 @@ def test_per_rank_flops_of_a_sharded_matmul_are_the_hand_count(fake_group):
         assert [op.kind for op in D.collect(counter.log)] == ["all-gather"]
 
 
+@pytest.mark.parametrize("fake_group", [2], indirect=True)
+def test_peak_bytes_per_rank_are_the_hand_count(fake_group):
+    """Storages that local ops make count from the op to their release;
+    views, in-place updates and the arguments add nothing; a
+    collective's result counts once, its wait handing it on."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = _mesh((2,), ("data",))
+    f32 = 4
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(8, 32), mesh, [Shard(0)])
+        w = distribute_tensor(torch.empty(32, 16), mesh, [Replicate()])
+        # the sharding propagator's own runs (first pass only) add nothing
+        for _ in range(2):
+            counter = D.StepCounter(mesh)
+            counter.exclude((x, w))
+            seen = []
+            with counter:
+                y = x @ w                              # [4, 16] local
+                seen.append(counter.live_bytes)
+                z = y * 2
+                seen.append(counter.live_bytes)
+                del y
+                seen.append(counter.live_bytes)
+                z.add_(1)
+                z.to_local()[1:]
+                seen.append(counter.live_bytes)
+                g = x.redistribute(mesh, [Replicate()])   # [8, 32] gathered
+                seen.append(counter.live_bytes)
+                del g, z
+                seen.append(counter.live_bytes)
+            one = 4 * 16 * f32
+            assert seen == [one, 2 * one, one, one, one + 8 * 32 * f32, 0]
+            assert counter.peak_bytes == one + 8 * 32 * f32
+            assert [op.kind for op in D.collect(counter.log)] == \
+                ["all-gather"]
+
+
 # ---------------------------------------------------------------------------
 # (e), (f): the mini dry run and the calibration, 8 ranks (4x2)
 # ---------------------------------------------------------------------------
@@ -302,7 +350,122 @@ def test_command_line_on_the_production_mesh(tmp_path):
     assert rec["status"] == "ok" and rec["n_devices"] == 256
     assert 0 < rec["counted_flops_per_rank"] < rec["counted_flops_global"]
     assert rec["collectives"]["n_sites"] > 0
+    assert rec["counted_peak_bytes_per_rank"] > 0
     assert "hlo_flops" not in rec
+
+
+_REPAIRED = r"""
+import json, sys
+from repro_torch.launch import dryrun as D
+D.fake_world(256)
+out = {}
+for arch, shape in (("gemma3-12b", "long_500k"),
+                    ("jamba-v0.1-52b", "long_500k"),
+                    ("jamba-v0.1-52b", "train_4k"),
+                    ("llama4-scout-17b-a16e", "train_4k")):
+    rec = D.run_one(arch, shape, False, force=True, out_dir=sys.argv[1],
+                    device="cpu", blocks=1)
+    out[f"{arch} {shape}"] = {k: rec.get(k) for k in (
+        "status", "error", "counted_flops_per_rank", "counted_flops_global",
+        "counted_peak_bytes_per_rank", "argument_size_in_bytes")}
+print(json.dumps(out))
+"""
+
+
+def test_repaired_combos_on_the_production_mesh(tmp_path):
+    """The decode step against a cache whose sequence the data and model
+    axes split at once (long_500k, B=1), Jamba's training step, and the
+    MoE dispatch split over ranks: each comes out ``ok`` with a per-rank
+    peak; llama4-scout's rank does at most 1/200 of the step's FLOPs
+    (global / per-rank >= 200; 256 is an even split)."""
+    out = json.loads(_run(_REPAIRED, str(tmp_path)).stdout.strip()
+                     .splitlines()[-1])
+    for name, rec in out.items():
+        assert rec["status"] == "ok", (name, rec["error"])
+        assert rec["counted_peak_bytes_per_rank"] > 0, name
+        assert 0 < rec["counted_flops_per_rank"] < rec["counted_flops_global"]
+    scout = out["llama4-scout-17b-a16e train_4k"]
+    assert scout["counted_flops_global"] / scout["counted_flops_per_rank"] \
+        >= 200
+
+
+_MOE_RANKS = r"""
+import numpy as np
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.trees import tree_leaves, tree_map
+from repro_torch.launch import sharding as shd
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_apply
+from test_torch_moe import _plain_case
+
+cfg = ModelConfig(name="t", arch_type="moe", n_layers=2, d_model=32,
+                  n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=128,
+                  n_experts=4, top_k=2, expert_d_ff=48, n_shared_experts=1,
+                  capacity_factor=1.25, dtype="float32")
+params, x, cot = _plain_case()
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+tp = params_from_numpy(params, "cpu")
+specs = shd.tree_pspecs({"ffn": tp}, ("data",), mesh=mesh)["ffn"]
+dp = tree_map(lambda t, s: distribute_tensor(
+    t.clone(), mesh, shd.to_placements(s, mesh)).requires_grad_(), tp, specs)
+rows = [Shard(0), Replicate()]
+xd = distribute_tensor(torch.as_tensor(x), mesh, rows).requires_grad_()
+with implicit_replication():
+    y, aux = moe_apply(dp, xd, cfg, n_groups=4)
+    cotd = distribute_tensor(torch.as_tensor(cot), mesh, rows)
+    loss = (y * cotd).sum() + aux
+    grads = torch.autograd.grad(loss, tree_leaves(dp) + [xd])
+leaves = [t.requires_grad_() for t in tree_leaves(tp)]
+tx = torch.as_tensor(x).requires_grad_()
+y0, aux0 = moe_apply(tp, tx, cfg, n_groups=4)
+grads0 = torch.autograd.grad((y0 * torch.as_tensor(cot)).sum() + aux0,
+                             leaves + [tx])
+
+
+def err(a, b):
+    b = b.detach()
+    return [float((a.full_tensor().detach() - b).abs().max()),
+            float(b.abs().max())]
+
+
+# the decode step's forms over a dim split over both mesh dims (a
+# long_500k cache's keys): softmax, and argmax with a tie (first wins)
+from repro_torch import dtensor_layouts as DL
+g = torch.Generator().manual_seed(1)
+s = torch.randn(2, 3, 16, generator=g)
+s[1, 2, 5] = s[1, 2, 12] = s[1, 2].max() + 1.0
+sd = distribute_tensor(s, mesh, [Shard(2), Shard(2)])
+with implicit_replication():
+    w, top = DL.softmax(sd), DL.argmax(sd)
+emit({"y": err(y, y0), "aux": err(aux, aux0),
+      "grads": [err(a, b) for a, b in zip(grads, grads0)],
+      "wg_local": list(dp["wg"].to_local().shape),
+      "softmax": err(w, torch.softmax(s, -1)),
+      "argmax": top.full_tensor().tolist(),
+      "argmax_want": s.argmax(-1).tolist()})
+"""
+
+
+def test_split_moe_dispatch_equals_the_plain_path(tmp_path):
+    """The dry run's MoE layer (each rank routes its own groups, the
+    experts split over ``model``) on real numbers: 4 gloo ranks on a 2×2
+    data × model mesh, 4 groups, capacity drops and a shared expert; the
+    output, the aux loss and every gradient equal the plain path's at the
+    layer tolerance of ``tests/test_torch_moe.py``, on every rank.  The
+    decode step's split softmax and argmax on the same ranks equal
+    ``torch.softmax`` (same tolerance) and ``argmax`` (first of a tie)."""
+    from _torch_ranks import Ranks
+    for out in Ranks(_MOE_RANKS, 4, str(tmp_path)).results():
+        assert out["wg_local"] == [2, 16, 48]     # E over model, D over data
+        for what, (e, m) in [("y", out["y"]), ("aux", out["aux"]),
+                             ("softmax", out["softmax"])] + [
+                (f"grad {i}", g) for i, g in enumerate(out["grads"])]:
+            assert e <= 1e-5 * max(1.0, m), (what, e, m)
+        assert out["argmax"] == out["argmax_want"]
+        assert out["argmax"][1][2] == 5
 
 
 def test_import_sets_no_environment_and_makes_no_group():

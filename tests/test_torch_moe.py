@@ -18,6 +18,7 @@ gradients), 1e-4 for the LM's logits and caches, as
 ``tests/test_torch_lm.py``; tokens identical.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -281,3 +282,72 @@ def test_moe_teacher_forced_decode_matches_jax(moe_lm_refs, name):
     for a, b in zip(tree_leaves(cache), jax.tree.leaves(r["tf_cache"])):
         assert_close(a, b, f"{name} teacher-forced cache", TOL_LM)
     assert params_to_numpy(p).keys() == r["params"].keys()
+
+
+# ---------------------------------------------------------------------------
+# the plain path, bit for bit: the dry run's split dispatch is a DTensor
+# branch beside it
+# ---------------------------------------------------------------------------
+PLAIN_FIXTURE = os.path.join(os.path.dirname(__file__), "data",
+                             "torch_moe_plain.npz")
+
+
+def _plain_case():
+    """numpy params, input and cotangent of a 4-group MoE layer with a
+    shared expert and capacity drops (E=4, k=2, capacity factor 1.25)."""
+    rng = np.random.default_rng(22)
+    D, E, Fd, Fs = 32, 4, 48, 48
+
+    def normal(*shape):
+        return (rng.normal(size=shape) / np.sqrt(shape[-2])).astype(
+            np.float32)
+
+    params = {"router": normal(D, E), "wg": normal(E, D, Fd),
+              "wu": normal(E, D, Fd), "wd": normal(E, Fd, D),
+              "shared": {"wg": {"w": normal(D, Fs)},
+                         "wu": {"w": normal(D, Fs)},
+                         "wd": {"w": normal(Fs, D)}}}
+    x = rng.normal(size=(2, 32, D)).astype(np.float32)
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    return params, x, cot
+
+
+def _plain_outputs(params, x, cot, tcfg):
+    """(y, aux, grads of sum(y · cot) + aux w.r.t. every param, then x) of
+    the port's plain path, as numpy."""
+    tp = params_from_numpy(params, "cpu")
+    leaves = [t.requires_grad_() for t in tree_leaves(tp)]
+    tx = torch.as_tensor(x).requires_grad_()
+    y, aux = moe_apply(tp, tx, tcfg, n_groups=4)
+    grads = torch.autograd.grad((y * torch.as_tensor(cot)).sum() + aux,
+                                leaves + [tx])
+    return ([y.detach().numpy(), aux.detach().numpy()]
+            + [g.numpy() for g in grads])
+
+
+def test_plain_path_is_the_parents_bit_for_bit_and_matches_jax():
+    """``moe_apply`` on plain tensors equals, bit for bit, the outputs the
+    plain path gave before the dry run's split dispatch was added (the
+    fixture), and matches the JAX package's ``moe_apply`` on the same
+    params at the layer tolerance."""
+    jcfg, tcfg = _cfgs(shared=1)
+    params, x, cot = _plain_case()
+    got = _plain_outputs(params, x, cot, tcfg)
+    with np.load(PLAIN_FIXTURE) as f:
+        want = [f[f"a{i}"] for i in range(len(f.files))]
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert np.array_equal(a, b), f"output {i} differs from the fixture"
+
+    def jloss(p, xx):
+        y, aux = jmoe_apply(p, xx, jcfg, n_groups=4)
+        return (y * cot).sum() + aux, (y, aux)
+
+    jp = jax.tree.map(jnp.asarray, params)
+    (_, (jy, jaux)), (jgp, jgx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jp, jnp.asarray(x))
+    assert_close(got[0], jy, "output")
+    assert_close(got[1], jaux, "aux")
+    for i, (a, b) in enumerate(zip(got[2:], jax.tree.leaves(jgp) + [jgx])):
+        assert_close(a, b, f"grad {i}")
