@@ -64,17 +64,22 @@ Phases, each of which fails the run when it fails:
    one captured launch replayed at two V against the plain version;
 3d. ``[serve]``: ``launch.serve.serve`` at full width from a random init
    — qwen3-0.6b (B=8, prompt 512, 64 generated tokens, bf16),
-   mamba2-370m (B=4, 512 in two 256-token chunks, 32) and whisper-base
-   (B=4, 64 source frames, prompt 16, 16) — each with the counters set to
-   0 just before it (its bulk prefill must launch the attention or SSD
+   mamba2-370m (B=4, 512 in two 256-token chunks, 32), whisper-base
+   (B=4, 64 source frames, prompt 16, 16) and gemma3-12b (48 layers, 40
+   local with a 1024-token window and 8 global, B=2, prompt 2048, 32; the
+   attention kernel's wide regime at hd 256) — each with the counters set
+   to 0 just before it (its bulk prefill must launch the attention or SSD
    kernel once a layer): prefill ms, decode ms a step over the graph
    replays (median, p99), tokens/s, peak memory, captures; reduced f32
    qwen3 and mamba2 on the card against the CPU (tokens identical, logits
    and caches within 1e-4); at full width the kernel prefill against the
-   plain one and both against float32, the decode graph against the eager
-   step, a profiled decode step and prefill, and the teacher-forced A/B at
+   plain one and both against float32 (gemma3: kernel vs plain at full
+   depth, the float32 comparison at one 6-layer super-block), the decode
+   graph against the eager step, a profiled decode step and prefill (with
+   its kernel's share of the device time), and the teacher-forced A/B at
    a 128-token prompt; the kernels against their plain versions at the
-   operands the prefills recorded and at gemma3-12b's local-layer shape
+   operands the prefills recorded and on random operands at gemma3-12b's
+   local and global shapes and kimi-k2's (B=1, S=4096, H=64/8, hd 112)
    (timed in phase 4); ``[continuous]``: full-width qwen3-0.6b beside
    IEMOCAP fused rounds (3 rounds of 16 decode steps), no capture after
    warm-up, and a hot swap against a fresh server (tokens identical);
@@ -89,13 +94,16 @@ Phases, each of which fails the run when it fails:
    source frames, 4 steps), mamba2-370m (48 layers, B=4, S=512, 3 steps),
    llava-next-34b and llama4-scout-17b-a16e cut to one layer (B=4, S=256,
    3 steps, Adafactor as for the full configs; llava one more step with
-   ``loss_chunk=128``) — each with the peak-memory and launch counters
-   reset just before it and the launches held to one a mixer layer a step
-   and one fusion-loss launch each way a loss: step ms p50, tok/s, peak
-   GiB, mfu (``models/analysis.py``'s 6·N_active·B·S over the bf16 dense
-   peak), losses; one step's value and grads, kernel route against plain
-   route; a profiled qwen3 step; reduced f32 twins of six archs (jamba:
-   MoE plus SSD), 3 steps card vs CPU; llama4-scout's ``serve()`` at one
+   ``loss_chunk=128``), gemma3-12b cut to one super-block (5 local layers
+   and 1 global, B=2, S=2048, 3 steps, Adafactor: AdamW's state for its
+   3.36 B params does not fit the card) — each with the peak-memory and
+   launch counters reset just before it and the launches held to one a
+   mixer layer a step and one fusion-loss launch each way a loss: step ms
+   p50, tok/s, peak GiB, mfu (``models/analysis.py``'s 6·N_active·B·S over
+   the bf16 dense peak), losses; one step's value and grads, kernel route
+   against plain route; a profiled qwen3 and gemma3 step; reduced f32
+   twins of six archs (jamba: MoE plus SSD), 3 steps card vs CPU;
+   llama4-scout's ``serve()`` at one
    layer (the MoE in the captured decode graph, 0 recaptures); every
    kernel against its plain version at the train steps' operands (timed
    in phase 4, their launches the JSON line's ``"train"`` path);
@@ -287,16 +295,26 @@ SSD_SWEEP = ((1, 2, 64, 2, 32, 16), (2, 4, 32, 4, 16, 8),
 #: (arch, batch, prompt, generated tokens), and the kernel each one's bulk
 #: prefill launches once a mixer layer
 SERVE_RUNS = (("qwen3-0.6b", 8, 512, 64), ("mamba2-370m", 4, 512, 32),
-              ("whisper-base", 4, 16, 16))
+              ("whisper-base", 4, 16, 16), ("gemma3-12b", 2, 2048, 32))
 SERVE_KERNEL = {"qwen3-0.6b": "flash_attention_fwd",
                 "mamba2-370m": "ssd_chunk_fwd",
-                "whisper-base": "flash_attention_fwd"}
+                "whisper-base": "flash_attention_fwd",
+                "gemma3-12b": "flash_attention_fwd"}
+#: the serve runs whose prefill is checked kernel vs plain vs float32, and
+#: the layers the float32 comparison keeps (None: all): gemma3-12b's float32
+#: copy at full depth (51 GB beside its 25.5 GB of bf16 params) does not
+#: fit the card, so its kernel-vs-plain prefill runs at full depth and the
+#: float32 comparison at one super-block
+SERVE_CHECKS = {"qwen3-0.6b": None, "mamba2-370m": None, "gemma3-12b": 6}
 #: the teacher-forced A/B's prompt, the decode steps the graph is held to
 #: the eager step over, and the reduced card-vs-CPU twins' batch and prompt
 TF_PROMPT, GRAPH_STEPS, TWIN_B, TWIN_S = 128, 8, 2, 64
-#: gemma3-12b's local layer (B, S, H, KH, hd, window), bfloat16: hd 256
-#: takes the generic regime, with a window
-GEMMA_LOCAL = (2, 2048, 16, 8, 256, 1024)
+#: the wide attention regime's shapes on random bfloat16 operands (label,
+#: (B, S, H, KH, hd, window)): gemma3-12b's local and global layers at its
+#: serve and train shape, kimi-k2's attention at a 4096-token prompt
+WIDE_RANDOM = (("gemma3-12b local (random)", (2, 2048, 16, 8, 256, 1024)),
+               ("gemma3-12b global (random)", (2, 2048, 16, 8, 256, None)),
+               ("kimi-k2-1t-a32b (random)", (1, 4096, 64, 8, 112, None)))
 #: continuous serving: JAX's launch.continuous main() (IEMOCAP fused rounds,
 #: K=6, n_samples=120, JCSBA, 4 requests, 32-token prompts) with the LM at
 #: full width
@@ -313,7 +331,16 @@ TRAIN_RUNS = (("qwen3-0.6b", None, 8, 256, 8),
               ("whisper-base", None, 8, 256, 4),
               ("mamba2-370m", None, 4, 512, 3),
               ("llava-next-34b", 1, 4, 256, 3),
-              ("llama4-scout-17b-a16e", 1, 4, 256, 3))
+              ("llama4-scout-17b-a16e", 1, 4, 256, 3),
+              ("gemma3-12b", 6, 2, 2048, 3))
+#: runs on Adafactor where ``make_optimizer`` picks AdamW: gemma3-12b's one
+#: super-block holds 3.36 B params (2.01 B of them the embedding and the
+#: untied head), and AdamW's functional update keeps the old and the new
+#: float32 moments and a float32 update tree at once (5 x 4 B a param,
+#: 67 GB), beside 13.4 GB of bf16 params and grads and the float32
+#: temporaries of the 1.0 B-param head (~12 GB): past the card's 80 GB;
+#: Adafactor's factored state fits
+TRAIN_ADAFACTOR = ("gemma3-12b",)
 #: the VLM's extra step through ``vlm_loss_chunked``
 TRAIN_LOSS_CHUNK = 128
 #: reduced float32 archs run 3 steps on the card and on the CPU
@@ -682,8 +709,9 @@ def fusion_check(torch, ops, ref, label, c, errs):
 # versions
 # ---------------------------------------------------------------------------
 class Capture:
-    """Records, per distinct operand shape, the first operands the main
-    path hands a front end (``module.name``) while the context is open."""
+    """Records, per distinct operand shape (and attention window), the
+    first operands the main path hands a front end (``module.name``) while
+    the context is open."""
 
     def __init__(self, torch, module, name, label):
         self.torch, self.module, self.name = torch, module, name
@@ -696,6 +724,8 @@ class Capture:
         def wrapper(*args, **kw):
             key = tuple(tuple(a.shape) for a in args
                         if isinstance(a, self.torch.Tensor))
+            if kw.get("window"):        # gemma3's local and global layers
+                key += (("window", kw["window"]),)
             if key not in self.seen:
                 self.seen[key] = dict(args=[self._clone(a) for a in args],
                                       kw=dict(kw), label=self.label)
@@ -1726,9 +1756,11 @@ def _serve_args(arch, B, prompt, gen, *extra):
          "--gen-len", str(gen), "--device", DEVICE, *extra])
 
 
-def profile_fn(torch, fn, label, top=6):
+def profile_fn(torch, fn, label, top=6, share=None):
     """One call of ``fn`` under ``torch.profiler``: wall, device busy
-    (idle) and device ops, and the kernels that take the device time."""
+    (idle) and device ops, the kernels that take the device time and,
+    with ``share``, the part of the busy time in kernels whose names hold
+    it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1752,6 +1784,12 @@ def profile_fn(torch, fn, label, top=6):
     for e in sorted(events, key=_device_us, reverse=True)[:top]:
         print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    if share:
+        part = [e for e in events if share in e.key]
+        ms = sum(_device_us(e) for e in part) / 1e3
+        print(f"[profile]   {share}*: {ms:.3f} ms in "
+              f"{sum(e.count for e in part)} launches, {ms / busy:.2%} of "
+              f"the device busy time")
     return busy
 
 
@@ -1806,6 +1844,7 @@ def serve_phase(torch, counters, found):
         for k, v in now.items():
             total[k] = total.get(k, 0) + v
         del out
+        gc.collect()
         torch.cuda.empty_cache()
     return total
 
@@ -1864,46 +1903,86 @@ def serve_twin_phase(torch):
             raise AssertionError(f"{arch}: card and cpu serving disagree")
 
 
+def _prefills(torch, cfg, params, tokens, impls):
+    """The bulk prefill of ``tokens`` once per ``impls`` entry: ``pallas``
+    (the kernels) and ``xla`` (the plain path) on ``params``, ``f32`` the
+    plain path on a float32 copy of them.  Returns {impl: (logits,
+    cache)}."""
+    from repro_torch.core.trees import tree_map
+    from repro_torch.models import transformer as T
+    B, prompt = tokens.shape
+    res = {}
+    for impl in impls:
+        p = (tree_map(lambda t: t.float(), params) if impl == "f32"
+             else params)
+        cache = T.init_cache(cfg, B, prompt + GRAPH_STEPS + 1,
+                             torch.float32 if impl == "f32" else None)
+        res[impl] = T.prefill_with_cache(
+            p, tokens, cache, cfg, attn_chunk=64,
+            impl="xla" if impl == "f32" else impl)
+        del p
+    return res
+
+
+def _prefill_errs(res):
+    """(logits, caches) relative to their largest value: the kernel
+    prefill against the plain one and, where ``res`` has ``f32``, each
+    against it."""
+    from repro_torch.core.trees import tree_leaves
+
+    def errs(a, b):
+        return (_rel_max(res[a][0], res[b][0]), max(
+            _rel_max(x, y) for x, y in zip(tree_leaves(res[a][1]),
+                                           tree_leaves(res[b][1]))))
+
+    e = {"kernel vs plain": errs("pallas", "xla")}
+    if "f32" in res:
+        e["kernel vs f32"] = errs("pallas", "f32")
+        e["plain vs f32"] = errs("xla", "f32")
+    return e
+
+
 def serve_checks_phase(torch):
-    """At full width, bf16, on the card: the kernel prefill
-    (``impl="pallas"``) against the plain prefill (``"xla"``) and both
-    against a float32 copy of the same params (the plain path), the last
-    position's logits and the caches relative to their largest value;
-    the decode graph's replays against the eager step (tokens identical);
-    and the teacher-forced A/B at a ``TF_PROMPT``-token prompt."""
+    """At full width, bf16, on the card, for each of ``SERVE_CHECKS``: the
+    kernel prefill (``impl="pallas"``) against the plain prefill
+    (``"xla"``) and both against a float32 copy of the same params (the
+    plain path; gemma3-12b's at one super-block, beside its full-depth
+    kernel-vs-plain prefill), the last position's logits and the caches
+    relative to their largest value; the decode graph's replays against
+    the eager step (tokens identical); a profiled decode step and prefill
+    (its kernel's share of the device time); and the teacher-forced A/B at
+    a ``TF_PROMPT``-token prompt."""
     from repro_torch.configs import get_config
-    from repro_torch.core.trees import tree_leaves, tree_map
     from repro_torch.launch import steps
     from repro_torch.launch.serve import Decoder
     from repro_torch.models import transformer as T
     out = {}
-    for arch, B, prompt, gen in SERVE_RUNS[:2]:
+    for arch, B, prompt, gen in SERVE_RUNS:
+        if arch not in SERVE_CHECKS:
+            continue
         cfg = get_config(arch)
         params = steps.init_fn(cfg)(torch.Generator(DEVICE).manual_seed(0))
         tokens = torch.as_tensor(np.random.default_rng(0).integers(
             0, 1000, (B, prompt)), device=DEVICE)
-        res = {}
-        for impl, p in (("pallas", params), ("xla", params),
-                        ("f32", tree_map(lambda t: t.float(), params))):
-            cache = T.init_cache(cfg, B, prompt + GRAPH_STEPS + 1,
-                                 torch.float32 if impl == "f32" else None)
-            logits, cache = T.prefill_with_cache(
-                p, tokens, cache, cfg, attn_chunk=64,
-                impl="xla" if impl == "f32" else impl)
-            res[impl] = (logits, cache)
-            del p
-        kl, kc = res["pallas"]
-        e = {"kernel vs plain": (_rel_max(kl, res["xla"][0]), max(
-                _rel_max(a, b) for a, b in zip(tree_leaves(kc),
-                                               tree_leaves(res["xla"][1]))))}
-        for name in ("pallas", "xla"):
-            e[f"{'kernel' if name == 'pallas' else 'plain'} vs f32"] = (
-                _rel_max(res[name][0], res["f32"][0]), max(
-                    _rel_max(a, b) for a, b in zip(
-                        tree_leaves(res[name][1]),
-                        tree_leaves(res["f32"][1]))))
-        agree = int((kl.argmax(-1) == res["xla"][0].argmax(-1)).sum())
-        print(f"[serve] {arch} full width bf16 prefill, B={B} S={prompt}: "
+        ccfg, cparams = cfg, params
+        if SERVE_CHECKS[arch]:
+            res = _prefills(torch, cfg, params, tokens, ("pallas", "xla"))
+            ek, ec = _prefill_errs(res)["kernel vs plain"]
+            print(f"[serve] {arch} full width and depth bf16 prefill "
+                  f"({cfg.n_layers} layers), B={B} S={prompt}: kernel vs "
+                  f"plain logits {ek:.3e}, caches {ec:.3e} (relative to "
+                  f"the largest value)")
+            del res
+            ccfg = dataclasses.replace(cfg, n_layers=SERVE_CHECKS[arch])
+            cparams = steps.init_fn(ccfg)(
+                torch.Generator(DEVICE).manual_seed(0))
+        res = _prefills(torch, ccfg, cparams, tokens, ("pallas", "xla",
+                                                        "f32"))
+        e = _prefill_errs(res)
+        agree = int((res["pallas"][0].argmax(-1)
+                     == res["xla"][0].argmax(-1)).sum())
+        print(f"[serve] {arch} full width bf16 prefill ({ccfg.n_layers} "
+              f"layers), B={B} S={prompt}: "
               + "; ".join(f"{k} logits {v[0]:.3e}, caches {v[1]:.3e}"
                           for k, v in e.items())
               + f" (relative to the largest value; expected within 2e-2); "
@@ -1911,6 +1990,7 @@ def serve_checks_phase(torch):
         if e["kernel vs f32"][0] > 2 * e["plain vs f32"][0] + 1e-3:
             raise AssertionError(f"{arch}: the kernel prefill is further "
                                  f"from float32 than twice the plain one")
+        del cparams
         del res
         # decode: graph replays against the eager step from the same state
         decs = []
@@ -1934,11 +2014,15 @@ def serve_checks_phase(torch):
         cache = T.init_cache(cfg, B, prompt + GRAPH_STEPS + 1)
         profile_fn(torch, lambda: T.prefill_with_cache(params, tokens, cache,
                                                        cfg, attn_chunk=64),
-                   f"serve {arch} bulk prefill B={B} S={prompt}")
+                   f"serve {arch} bulk prefill B={B} S={prompt}",
+                   share=TRACE_NAMES[SERVE_KERNEL[arch]])
         del decs, g, eg, cache
         if arch == "qwen3-0.6b":
             out["tf"] = teacher_forced_ab(torch, cfg, params, tokens)
         del params
+        # freed now, not at a later collection: gemma3-12b's 25.5 GB of
+        # params were still held at the next phase's peak without it
+        gc.collect()
         torch.cuda.empty_cache()
     return out
 
@@ -1981,26 +2065,33 @@ def teacher_forced_ab(torch, cfg, params, tokens):
     return dict(bulk_ms=bulk_ms, tf_ms=tf_ms)
 
 
-def gemma_local_case(torch):
-    """Random bfloat16 operands at gemma3-12b's local-layer shape."""
-    B, S, H, KH, hd, win = GEMMA_LOCAL
+def wide_random_cases(torch):
+    """Random bfloat16 operands at each of ``WIDE_RANDOM``'s shapes."""
     g = torch.Generator(device=DEVICE).manual_seed(5)
-    q, k, v = (torch.randn(s, device=DEVICE, generator=g).to(torch.bfloat16)
-               for s in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)))
-    return attn_case(torch, q, k, v, win, "gemma3-12b local (random)")
+    cases = []
+    for label, (B, S, H, KH, hd, win) in WIDE_RANDOM:
+        q, k, v = (torch.randn(s, device=DEVICE, generator=g)
+                   .to(torch.bfloat16)
+                   for s in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)))
+        cases.append(attn_case(torch, q, k, v, win, label))
+    return cases
 
 
 def serving_kernel_phase(torch, found):
     """Both backbone kernels against their plain versions (float32 and
     float64) at the operands the serving prefills handed them, and
-    attention at gemma3-12b's local-layer shape.  Returns the cases and
-    the max abs error per kernel against the float32 plain version."""
+    attention at ``WIDE_RANDOM``'s shapes.  Returns the cases and the max
+    abs error per kernel against the float32 plain version."""
     attn = [attn_case(torch, *rec["args"], rec["kw"].get("window"),
                       rec["label"]) for rec in found.get("attn", {}).values()]
-    attn.append(gemma_local_case(torch))
+    if sum(c["regime"] == "wide" for c in attn) < 2:
+        raise AssertionError("serving: gemma3-12b's local and global "
+                             "prefill operands not recorded on the wide "
+                             "regime")
+    attn += wide_random_cases(torch)
     ssd = [ssd_case(*rec["args"], rec["label"])
            for rec in found.get("ssd_chunk", {}).values()]
-    if len(attn) < 3 or not ssd:
+    if len(attn) < 6 or not ssd:
         raise AssertionError("serving: kernel operands not recorded")
     errs = {"flash_attention_fwd": [], "ssd_chunk_fwd": []}
     backbone_checks(torch, attn, ssd, {"attn": {}, "ssd_forward": {}}, errs)
@@ -2180,13 +2271,16 @@ def train_run(torch, counters, found, arch, n_layers, B, S, n_steps):
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch import steps
     from repro_torch.models import analysis
-    from repro_torch.optim import warmup_cosine
+    from repro_torch.optim import adafactor, warmup_cosine
     reset, read = counters
     t_run = time.perf_counter()
     cfg = _train_cfg(arch, n_layers)
     n_full = steps.param_count(steps.params_shape(_train_cfg(arch)))
-    opt, opt_name = steps.make_optimizer(
-        cfg, n_full, lr=warmup_cosine(3e-4, 10, n_steps))
+    lr = warmup_cosine(3e-4, 10, n_steps)
+    if arch in TRAIN_ADAFACTOR:
+        opt, opt_name = adafactor(lr), "adafactor (AdamW's state too large)"
+    else:
+        opt, opt_name = steps.make_optimizer(cfg, n_full, lr=lr)
     params = steps.init_fn(cfg)(torch.Generator(DEVICE).manual_seed(0))
     batches = _train_batches(cfg, B, S, n_steps, DEVICE)
     label = (f"{arch} ({cfg.n_layers} of {_train_cfg(arch).n_layers} "
@@ -2278,8 +2372,8 @@ def train_vlm_chunked_step(torch, counters, found, run):
 
 
 def train_phase(torch, counters, found):
-    """Every ``TRAIN_RUNS`` run (the qwen3 one profiled for a step), the
-    VLM's chunked-loss step.  Returns the launches of the train steps."""
+    """Every ``TRAIN_RUNS`` run (the qwen3 and gemma3 ones profiled for a
+    step), the VLM's chunked-loss step.  Returns the launches of the train steps."""
     total = {}
     for arch, n_layers, B, S, n_steps in TRAIN_RUNS:
         now, run = train_run(torch, counters, found, arch, n_layers, B, S,
@@ -2288,12 +2382,18 @@ def train_phase(torch, counters, found):
             profile_fn(torch, lambda: run["step"](
                 run["params"], run["opt_state"], run["batches"][0]),
                 "train qwen3-0.6b one step (B=8, S=256)", top=12)
+        if arch == "gemma3-12b":
+            profile_fn(torch, lambda: run["step"](
+                run["params"], run["opt_state"], run["batches"][0]),
+                f"train gemma3-12b one step ({n_layers} layers, B={B}, "
+                f"S={S})", top=8, share=TRACE_NAMES["flash_attention_fwd"])
         if arch == "llava-next-34b":
             extra = train_vlm_chunked_step(torch, counters, found, run)
             now = {k: now[k] + extra[k] for k in now}
         for k, v in now.items():
             total[k] = total.get(k, 0) + v
         del run
+        gc.collect()
         torch.cuda.empty_cache()
     return total
 
@@ -3220,6 +3320,9 @@ def mesh_phase(torch, counters, ops, ref):
     population rows, B_min rows and max errors)."""
     t_start = time.perf_counter()
     os.makedirs(MESH_DIR, exist_ok=True)
+    print(f"[mesh] device memory at the phase's start: allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB", flush=True)
     counts, found = {}, {}
     single = {name: population_phase(torch, counters, name, K, counts, found)
               for name, K in POP_RUNS}

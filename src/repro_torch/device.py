@@ -1,5 +1,9 @@
-"""Device resolution: the port runs on the card unless told otherwise."""
+"""Device resolution: the port runs on the card unless told otherwise;
+and CUDA graph capture safe from Python's garbage collector."""
 from __future__ import annotations
+
+import contextlib
+import gc
 
 import torch
 
@@ -14,3 +18,23 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(dev)!r} requested but CUDA is not available; "
             f"pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def graph_capture(graph, pool=None):
+    """``torch.cuda.graph(graph, pool=pool)`` with Python's cyclic garbage
+    collected just before and the collector paused until the capture ends.
+    A dead reference cycle that holds CUDA objects (a server's decode
+    graph, a round engine's graphs), collected by the automatic collector
+    in the middle of a capture, frees them on the capturing thread and
+    invalidates the capture (``cudaErrorStreamCaptureInvalidated``); the
+    graph context itself no longer collects before it begins."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        if enabled:
+            gc.enable()

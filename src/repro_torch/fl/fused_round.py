@@ -75,7 +75,7 @@ import torch.distributed as dist
 from ..core import aggregation as agg
 from ..core.convergence import grad_gram, tracker_update_gram
 from ..core.trees import tree_leaves, tree_map
-from ..device import resolve_device
+from ..device import graph_capture, resolve_device
 from ..kernels import launch_counts
 from ..kernels.jcsba_solver.ops import bmin as _bmin
 from ..launch.mesh import axis_names, axis_sizes, make_sweep_mesh
@@ -655,7 +655,7 @@ class FusedRoundEngine:
             self._static_aux = torch.empty_like(packed)
         before = launch_counts()
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, pool=self._pool):
+        with graph_capture(g, pool=self._pool):
             new, aux = self._round_step(self._static_carry, self._static_xs,
                                         self._store, evaluate,
                                         test_set=test_set, axis=self._axis)

@@ -24,10 +24,10 @@
 // client-samples, S = 32, H = KH = 4, hd = 8) a call moves about 15.7 MB
 // against 0.07 GFLOP: bytes, 4.7 µs at 3.35 TB/s; with 8-wide heads the
 // work per row is so small that instruction issue, and the lanes the causal
-// triangle leaves idle, weigh as much as the bytes.  At the JAX sweep's shapes (S 128–512, hd
-// 32–128) it is operations: the tensor cores in bfloat16, FFMA in float32
-// (TF32 would not hold the float32 tolerance, 2e-5).  Three regimes, one
-// launch per call:
+// triangle leaves idle, weigh as much as the bytes.  At the JAX sweep's
+// shapes (S 128–512, hd 32–128) and the LMs' (S 256–4096, hd 64–256) it is
+// operations: the tensor cores in bfloat16, FFMA in float32 (TF32 would not
+// hold the float32 tolerance, 2e-5).  Four regimes, one launch per call:
 //
 // * short (S <= 64, hd 8, 16 or 32): attn_short_kernel.  One block per
 //   (batch row, group of heads), a lane per (query row, head): a warp
@@ -53,9 +53,26 @@
 //   softmax state at the end (ops.py:mma_layout picks rows, splits and the
 //   key tile).  float32: attn_ffma_kernel, 64 rows and 4 warps a block,
 //   register-blocked FFMA (4×4 scores and 4 rows × hd/8 outputs a thread).
-// * generic (any other hd up to 256, or operands not aligned for 16-byte
-//   copies): attn_generic_kernel, one block per (batch, head, 32 query
-//   rows) with the scores and the accumulator in shared memory.
+// * wide (bfloat16, hd 112 or 256, 16-byte aligned operands):
+//   attn_wide_kernel, the long regime's tensor-core loop (mma.sync.m16n8k16,
+//   f32 accumulate; cp.async double-buffered K/V; tiles past the causal edge
+//   or before the window skipped, heavy query tiles first, the mask only on
+//   edge tiles) laid out for a head dim whose 16 x hd f32 output accumulator
+//   takes 56 or 128 registers a lane: Q stays in shared memory and is read
+//   by ldmatrix each key tile (16-wide head-dim steps, one A fragment live),
+//   K fragments two key n-blocks per ldmatrix.x4 and V fragments two output
+//   n-blocks per ldmatrix.x4.trans, so that nothing else is held across the
+//   loop.  A block of 8 warps (hd 256) or 4 (hd 112), 16 query rows each,
+//   serves as many query heads of one KV head as divide both its warps and
+//   H / KH: each K/V tile is read once for all of them.  Key tiles of 64;
+//   8 warps on a SM at either width (one block at hd 256, whose 16 x 256
+//   accumulator takes the registers, two at hd 112).  ops.py:plan sends
+//   the shapes here.
+// * generic (float32 at any hd outside the long regime's, any other bfloat16
+//   hd up to 256, or operands not aligned for 16-byte copies; not designed
+//   for this card's tensor cores): attn_generic_kernel, one block per
+//   (batch, head, 32 query rows) with the scores and the accumulator in
+//   shared memory, scalar FFMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -344,6 +361,81 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
         : "r"(a));
 }
 
+// The tile's scores s (NB key n-blocks in the mma accumulator layout: this
+// lane's rows g and g + 8, columns 2c and 2c + 1 of each n-block) masked to
+// each row's visible offsets [lo, hi] from this lane's first column,
+// scaled to log2 units and taken into the running max m and sum l (the
+// four lanes of a row agree on m): s becomes the softmax weights, alpha
+// each row's rescale of the output accumulator.
+template <int NB>
+__device__ __forceinline__ void online_softmax(float (&s)[NB][4],
+                                               const int (&hi)[2],
+                                               const int (&lo)[2],
+                                               float qscale, float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2]) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int off = nb * 8 + (e & 1), r = e >> 1;
+            const bool vis = (off <= hi[r]) & (off >= lo[r]);
+            const float x = vis ? s[nb][e] * qscale : -INFINITY;
+            s[nb][e] = x;
+            mx[r] = fmaxf(mx[r], x);
+        }
+    float m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        m_use[r] = m_new == -INFINITY ? 0.0f : m_new;
+        alpha[r] = fast_exp2(m[r] - m_use[r]);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float p = fast_exp2(s[nb][e] - m_use[e >> 1]);
+            s[nb][e] = p;
+            l[e >> 1] += p;
+        }
+}
+
+// The warp's 16 output rows (the accumulator's HD / 8 n-blocks over the row
+// sums l, summed here over a row's four lanes) through shared memory at os
+// (rows of KP elements), then 16-byte stores of the rows below S to ob
+// (row stride ls).
+template <int HD, int KP>
+__device__ __forceinline__ void store_rows(const float (&oacc)[HD / 8][4],
+                                           float (&l)[2], bf16* os,
+                                           bf16* ob, long long ls, int qw,
+                                           int S) {
+    constexpr int C = HD / 8;                     // 16-byte chunks a row
+    const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(FULL_MASK, l[r], 1);
+        l[r] += __shfl_xor_sync(FULL_MASK, l[r], 2);
+        const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int dn = 0; dn < HD / 8; ++dn)
+            *reinterpret_cast<uint32_t*>(os + (g + 8 * r) * KP + dn * 8 + 2 * c) =
+                pack_bf16(oacc[dn][2 * r] * inv, oacc[dn][2 * r + 1] * inv);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * C; i += 32) {
+        const int r = i / C, cc = i % C;
+        if (qw + r < S)
+            *reinterpret_cast<uint4*>(ob + (long long)(qw + r) * ls + cc * 8) =
+                *reinterpret_cast<const uint4*>(os + r * KP + cc * 8);
+    }
+}
+
 // One block: 16·RG query rows of one (batch, head), RG·KS warps, key
 // tiles of BK.  Warp w owns rows 16·(w % RG) .. +16 and every KS-th key
 // tile from (w / RG): the KS key splits run side by side, so the longest
@@ -495,40 +587,12 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             }
 
             // mask, scale (to log2 units), online softmax
-            float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-            for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int off = nb * 8 + (e & 1), r = e >> 1;
-                    const bool vis = (off <= hi[r]) & (off >= lo[r]);
-                    const float x = vis ? s[nb][e] * qscale : -INFINITY;
-                    s[nb][e] = x;
-                    mx[r] = fmaxf(mx[r], x);
-                }
-            float m_use[2], alpha[2];
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 1));
-                mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 2));
-                const float m_new = fmaxf(m[r], mx[r]);
-                m_use[r] = m_new == -INFINITY ? 0.0f : m_new;
-                alpha[r] = fast_exp2(m[r] - m_use[r]);
-                m[r] = m_new;
-                l[r] *= alpha[r];
-            }
+            float alpha[2];
+            online_softmax(s, hi, lo, qscale, m, l, alpha);
 #pragma unroll
             for (int i = 0; i < HD / 8; ++i)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) oacc[i][e] *= alpha[e >> 1];
-#pragma unroll
-            for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const float p = fast_exp2(s[nb][e] - m_use[e >> 1]);
-                    s[nb][e] = p;
-                    l[e >> 1] += p;
-                }
 
             // O += P·V: P's accumulator layout is the A fragment's; the V
             // fragments of a 16-key step first (ldmatrix.trans), then its
@@ -591,28 +655,12 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // the warp's 16 output rows through shared memory (past the merge's
-    // space), then 16-byte stores of whole rows
+    // space)
     bf16* os = reinterpret_cast<bf16*>(reinterpret_cast<float*>(smem4)
                                        + (KS - 1) * RG * 32 * (5 + HD / 2))
                + rg * 16 * KP;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(FULL_MASK, l[r], 1);
-        l[r] += __shfl_xor_sync(FULL_MASK, l[r], 2);
-        const float inv = 1.0f / fmaxf(l[r], 1e-30f);
-#pragma unroll
-        for (int dn = 0; dn < HD / 8; ++dn)
-            *reinterpret_cast<uint32_t*>(os + (g + 8 * r) * KP + dn * 8 + 2 * c) =
-                pack_bf16(oacc[dn][2 * r] * inv, oacc[dn][2 * r + 1] * inv);
-    }
-    __syncwarp();
-    bf16* ob = o + b * lo.b + (long long)h * lo.h;
-    for (int i = lane; i < 16 * C; i += 32) {
-        const int r = i / C, cc = i % C;
-        if (qw + r < S)
-            *reinterpret_cast<uint4*>(ob + (long long)(qw + r) * lo.s + cc * 8) =
-                *reinterpret_cast<const uint4*>(os + r * KP + cc * 8);
-    }
+    store_rows<HD, KP>(oacc, l, os, o + b * lo.b + (long long)h * lo.h, lo.s,
+                       qw, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -812,8 +860,211 @@ attn_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// generic: any hd up to 256, any strides (scores and accumulator in shared
-// memory)
+// wide, bfloat16: hd 112 and 256 on the tensor cores
+// ---------------------------------------------------------------------------
+#define WIDE_BK 64                 // keys per tile
+// warps a block, 16 query rows each: 8 warps on a SM either way (one block
+// of 8 at hd 256, 242–246 registers a thread; two of 4 at hd 112).  At hd
+// 256 one block of 8 warps with 64-key tiles ran 15–17 % faster than two
+// blocks of 4 with 32-key tiles: half the K/V tiles written to shared
+// memory and read from L2 per query row, half the tiles' barriers
+__host__ __device__ constexpr int wide_warps(int hd) {
+    return hd > 128 ? 8 : 4;
+}
+static bool wide_hd(int hd) { return hd == 112 || hd == 256; }
+
+// the block's query rows, then K and V in two stages, rows padded by 8
+// (16 bytes: ldmatrix's eight rows fall in distinct banks): 202 752 bytes
+// at hd 256, 76 800 at hd 112
+static size_t wide_smem(int hd) {
+    return sizeof(bf16) * (16 * wide_warps(hd) + 4 * (size_t)WIDE_BK)
+           * (hd + 8);
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const bf16* p) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// One block: hpb query heads of one KV head (hpb divides R = H / KH and
+// the block's NW warps) × the 16·(NW/hpb) query positions of tile qt;
+// warp w serves head w / (NW/hpb), positions 16·(w % (NW/hpb)) onward.
+// Grid: (qt, batch, KV head, head group), qt slowest and the longest
+// tiles first.
+template <int HD>
+__global__ void __launch_bounds__(32 * wide_warps(HD), 8 / wide_warps(HD))
+attn_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, Layout lq,
+                 Layout lk, Layout lv, Layout lo, int H, int KH, int S,
+                 int nq, int hpb, float scale, int window) {
+    constexpr int NW = wide_warps(HD), BK = WIDE_BK;
+    constexpr int KP = HD + 8;                    // padded row, elements
+    constexpr int NB = BK / 8;                    // key n-blocks a tile
+    constexpr int DN = HD / 8;                    // output n-blocks
+    constexpr int C = HD / 8;                     // 16-byte chunks a row
+    constexpr int TILE = BK * KP;
+    static_assert(HD % 16 == 0 && DN % 2 == 0 && NB % 2 == 0, "tile shape");
+    extern __shared__ float4 smem4[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem4);    // [NW·16][KP]
+    bf16* Ks = Qs + 16 * NW * KP;                 // [stage][BK][KP]
+    bf16* Vs = Ks + 2 * TILE;                     // [stage][BK][KP]
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int rgs = NW / hpb;                     // warps a head
+    const int R = H / KH, ngrp = R / hpb, BQ = 16 * rgs;
+    const long long inner = (long long)gridDim.x / nq;  // B · KH · ngrp
+    const long long bid = blockIdx.x;
+    const int qt = nq - 1 - (int)(bid / inner);   // long rows first
+    const long long rest = bid % inner;
+    const int hg = (int)(rest % ngrp);
+    const int kvh = (int)((rest / ngrp) % KH);
+    const long long b = rest / ((long long)ngrp * KH);
+    const int h0 = kvh * R + hg * hpb;            // the block's first head
+    const int q0 = qt * BQ;
+    const int h = h0 + warp / rgs, qw = q0 + (warp % rgs) * 16;
+    const int rows[2] = {qw + g, qw + g + 8};
+
+    // the block's query rows (zero past S), then the first key tile
+    for (int i = tid; i < 16 * NW * C; i += 32 * NW) {
+        const int r = i / C, cc = i % C, w = r / 16;
+        const int qp = q0 + (w % rgs) * 16 + r % 16;
+        const bool in = qp < S;
+        cp_async16(Qs + r * KP + cc * 8,
+                   q + b * lq.b + (long long)(h0 + w / rgs) * lq.h
+                     + (in ? (long long)qp * lq.s : 0) + cc * 8, in);
+    }
+    const bf16* kb = k + b * lk.b + (long long)kvh * lk.h;
+    const bf16* vb = v + b * lv.b + (long long)kvh * lv.h;
+    const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+    const int kt_hi = (min(S, q0 + BQ) - 1) / BK;
+    auto issue = [&](int kt, int buf) {
+        for (int i = tid; i < 2 * BK * C; i += 32 * NW) {
+            const int which = i / (BK * C);       // 0 K, 1 V
+            const int r = (i / C) % BK, cc = i % C;
+            const int key = kt * BK + r;
+            const bool in = key < S;
+            const bf16* src = which ? vb + (in ? (long long)key * lv.s : 0)
+                                    : kb + (in ? (long long)key * lk.s : 0);
+            cp_async16((which ? Vs : Ks) + buf * TILE + r * KP + cc * 8,
+                       src + cc * 8, in);
+        }
+    };
+    issue(kt_lo, 0);
+    cp_async_commit();
+
+    const float qscale = scale * LOG2E;           // scores in log2 units
+    float oacc[DN][4];
+#pragma unroll
+    for (int i = 0; i < DN; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[i][e] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    // ldmatrix row addresses: this lane's row of the warp's Q (A fragment:
+    // rows 0-15, columns 0-7 then 8-15), of two key n-blocks (B fragments
+    // of n-blocks nb and nb + 1, each its two 8-column halves) and of a
+    // 16-key step of V (transposed: two 8-column output n-blocks)
+    const bf16* qrow = Qs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1))
+                                * KP + 8 * (lane >> 4);
+    const int krow = ((lane & 7) + 8 * (lane >> 4)) * KP
+                     + 8 * ((lane >> 3) & 1);
+    const int vrow = (lane & 15) * KP + 8 * (lane >> 4);
+    // the warp's key range: none past its last row, none before its first
+    // row's window
+    const int w_hi = min(qw + 15, S - 1);
+    const int w_lo = window > 0 ? qw - window + 1 : 0;
+
+    for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+        const int buf = (kt - kt_lo) & 1;
+        if (kt < kt_hi) issue(kt + 1, buf ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const int k0 = kt * BK;
+        if (qw < S && k0 <= w_hi && k0 + BK - 1 >= w_lo) {
+            const bf16* kt_s = Ks + buf * TILE;
+            const bf16* vt_s = Vs + buf * TILE;
+            // where the tile meets the causal edge, the window or the end of
+            // the sequence: each row's visible keys as offsets from this
+            // lane's first column, and the key n-blocks past the warp's
+            // last row (skipped: fully masked)
+            const bool edge = k0 + BK - 1 > qw || k0 + BK > S ||
+                              (window > 0 && k0 <= qw + 15 - window);
+            const int nb_lim = !edge ? NB : min(NB, (w_hi - k0) / 8 + 1);
+            int hi[2], lo[2];              // off-tile edges: no branch below
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                hi[r] = edge ? min(rows[r], S - 1) - k0 - 2 * c : BK;
+                lo[r] = edge && window > 0
+                            ? rows[r] - window + 1 - k0 - 2 * c : -BK;
+            }
+
+            // S = Q·Kᵀ over 16-wide head-dim steps: the step's Q fragment,
+            // then two key n-blocks per ldmatrix.x4, NB accumulators
+            float s[NB][4];
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+                uint32_t qa[4];
+                ldmatrix_x4(qa, qrow + kk * 16);
+#pragma unroll
+                for (int nb = 0; nb < NB; nb += 2) {
+                    if (nb >= nb_lim) break;       // the rest fully masked
+                    uint32_t kf[4];
+                    ldmatrix_x4(kf, kt_s + krow + nb * 8 * KP + kk * 16);
+                    mma16816(s[nb], qa, kf[0], kf[1]);
+                    mma16816(s[nb + 1], qa, kf[2], kf[3]);
+                }
+            }
+
+            // mask, scale (to log2 units), online softmax
+            float alpha[2];
+            online_softmax(s, hi, lo, qscale, m, l, alpha);
+#pragma unroll
+            for (int i = 0; i < DN; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) oacc[i][e] *= alpha[e >> 1];
+
+            // O += P·V: P's accumulator layout is the A fragment's; per
+            // 16-key step, two output n-blocks per ldmatrix.x4.trans
+#pragma unroll
+            for (int j = 0; j < BK / 16; ++j) {
+                if (2 * j >= nb_lim) break;
+                const uint32_t pa[4] = {
+                    pack_bf16(s[2 * j][0], s[2 * j][1]),
+                    pack_bf16(s[2 * j][2], s[2 * j][3]),
+                    pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                    pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+                const bf16* vj = vt_s + vrow + j * 16 * KP;
+#pragma unroll
+                for (int dn = 0; dn < DN; dn += 2) {
+                    uint32_t vf[4];
+                    ldmatrix_x4_trans(vf, vj + dn * 8);
+                    mma16816(oacc[dn], pa, vf[0], vf[1]);
+                    mma16816(oacc[dn + 1], pa, vf[2], vf[3]);
+                }
+            }
+        }
+        __syncthreads();
+    }
+
+    // the warp's 16 output rows through its own Q rows in shared memory
+    // (read by no other warp)
+    store_rows<HD, KP>(oacc, l, Qs + warp * 16 * KP,
+                       o + b * lo.b + (long long)h * lo.h, lo.s, qw, S);
+}
+
+// ---------------------------------------------------------------------------
+// generic: float32 or unaligned operands outside the other regimes, any hd
+// up to 256, any strides (scores and accumulator in shared memory; not
+// designed for this card's tensor cores)
 // ---------------------------------------------------------------------------
 #define G_BQ 32                    // query rows per block
 #define G_BK 32                    // keys per shared-memory tile
@@ -951,7 +1202,7 @@ attn_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-enum { R_SHORT = 0, R_LONG = 1, R_GENERIC = 2 };
+enum { R_SHORT = 0, R_LONG = 1, R_GENERIC = 2, R_WIDE = 3 };
 
 static bool short_hd(int hd) { return hd == 8 || hd == 16 || hd == 32; }
 static bool long_hd(int hd) {
@@ -982,6 +1233,12 @@ extern "C" int flash_attention_smem_bytes(int regime, int dtype, int S,
     if (regime == R_GENERIC) {
         if (hd < 1 || hd > MAX_HD) return -1;
         return (int)generic_smem(hd);
+    }
+    if (regime == R_WIDE) {        // hpb: the block's query heads
+        if (!dtype || !wide_hd(hd) || bk != WIDE_BK || R < 1 || hpb < 1 ||
+            wide_warps(hd) % hpb || R % hpb)
+            return -1;
+        return (int)wide_smem(hd);
     }
     return -1;
 }
@@ -1074,6 +1331,23 @@ static int launch_long(const Args& a, int dtype, size_t smem) {
     return (int)cudaGetLastError();
 }
 
+// a.hpb query heads a block, a.rg = wide_warps(HD) / a.hpb warps a head
+template <int HD>
+static int launch_wide(const Args& a, size_t smem) {
+    if (a.hpb * a.rg != wide_warps(HD)) return -2;
+    auto kern = attn_wide_kernel<HD>;
+    const int nq = (a.S + 16 * a.rg - 1) / (16 * a.rg);
+    const long long blocks =
+        (long long)a.B * a.KH * (a.H / a.KH / a.hpb) * nq;
+    if (blocks > 2147483647LL) return -3;
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<(unsigned)blocks, 32 * wide_warps(HD), smem, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o,
+        a.lq, a.lk, a.lv, a.lo, a.H, a.KH, a.S, nq, a.hpb, a.scale,
+        a.window);
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_generic(const Args& a, size_t smem) {
     auto kern = attn_generic_kernel<T>;
@@ -1099,12 +1373,13 @@ static bool aligned16(const Args& a, int esz) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.  regime:
-// 0 short, 1 long, 2 generic; hpb the query heads of a short block or the
-// key splits of a long bfloat16 block, rg and bk the latter's row groups
-// and key tile.
+// 0 short, 1 long, 2 generic, 3 wide; hpb the query heads of a short or
+// wide block or the key splits of a long bfloat16 block, rg the row groups
+// of a long block or the warps a head of a wide one, bk the key tile.
 // Returns a cudaError_t, or a negative code for arguments the kernel
 // refuses: -1 a bad size, -2 a regime that does not take the shape, -3 too
-// many blocks, -4 an unknown dtype, -5 operands not 16-byte aligned (long).
+// many blocks, -4 an unknown dtype, -5 operands not 16-byte aligned (long,
+// wide).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, long long qb,
     long long qs, long long qh, long long kb, long long ks, long long kh,
@@ -1136,6 +1411,11 @@ extern "C" int flash_attention_fwd(
             case 128: return launch_long<128>(a, dtype, smem);
         }
         return -2;
+    }
+    if (regime == R_WIDE) {
+        if (!a.vec) return -5;
+        return hd == 256 ? launch_wide<256>(a, smem)
+                         : launch_wide<112>(a, smem);
     }
     return dtype ? launch_generic<bf16>(a, smem)
                  : launch_generic<float>(a, smem);

@@ -7,10 +7,12 @@ else — a CUDA tensor the kernel cannot take raises.  The kernel reads its
 operands through their strides (head dim contiguous), so the layout needs
 no transpose on the card.  ``plan`` picks the kernel's regime from the
 shapes — short sequences a lane per query row, long ones 64-row tiles on
-the tensor cores (bfloat16) or in FFMA (float32), any other head dim the
-generic tiles — here in Python so that the choice is testable without a
-card; the C side checks it again.  The wrapper counts its launches
-(``launch_counts()``), so a run can show that it went through the kernel.
+the tensor cores (bfloat16) or in FFMA (float32), bfloat16 at hd 112 and
+256 the wide tiles on the tensor cores, float32 or unaligned operands at
+any other head dim the generic tiles — here in Python so that the choice
+is testable without a card; the C side checks it again.  The wrapper
+counts its launches (``launch_counts()``), so a run can show that it went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -38,16 +40,23 @@ SHORT_MAX_THREADS = 512
 LONG_HD = (16, 32, 64, 128)
 LQ, MMA_BK, FMA_BK, LONG_THREADS = 64, 64, 32, 128
 SM_COUNT = 132
-#: generic regime: 32 query rows, 32 keys, 128 threads a block
+#: wide regime (bfloat16 on the tensor cores, 16-byte aligned operands):
+#: head dim -> warps a block (16 query rows each, serving the query heads
+#: of one KV head that divide both the warps and H / KH); key tiles of 64
+WIDE_WARPS = {112: 4, 256: 8}
+WIDE_BK = 64
+#: generic regime (float32, or unaligned operands, at a head dim no other
+#: regime takes): 32 query rows, 32 keys, 128 threads a block
 G_BQ, G_BK, G_THREADS = 32, 32, 128
-REGIMES = {"short": 0, "long": 1, "generic": 2}
+REGIMES = {"short": 0, "long": 1, "generic": 2, "wide": 3}
 
 
 @dataclass(frozen=True)
 class Plan:
-    """One launch: the regime, the query heads of a short block, the key
-    splits, 16-row groups and key tile of a long bfloat16 block, the
-    block's threads, the grid's blocks and the block's shared memory."""
+    """One launch: the regime, the query heads of a short or wide block,
+    the key splits, 16-row groups and key tile of a long bfloat16 block
+    (a wide block's warps a head and key tile), the block's threads, the
+    grid's blocks and the block's shared memory."""
     regime: str
     heads_per_block: int
     key_splits: int
@@ -59,8 +68,8 @@ class Plan:
 
     @property
     def c_arg(self) -> int:
-        """The kernel's per-regime argument: heads per block (short), key
-        splits (long)."""
+        """The kernel's per-regime argument: heads per block (short,
+        wide), key splits (long)."""
         return self.key_splits if self.regime == "long" else \
             self.heads_per_block
 
@@ -114,13 +123,16 @@ def smem_bytes(regime: str, dtype: torch.dtype, S: int, hd: int,
     if regime == "long":
         return 4 * (LQ * (hd + 4) + 2 * FMA_BK * (hd + 4) + 2 * FMA_BK * hd
                     + LQ * (FMA_BK + 1))
+    if regime == "wide":       # the block's query rows, two stages of K/V
+        return 2 * (16 * WIDE_WARPS[hd] + 4 * WIDE_BK) * (hd + 8)
     return 4 * (G_BQ * hd + G_BK * (hd + 1) + G_BK * hd + G_BQ * (G_BK + 1)
                 + G_BQ * hd + 3 * G_BQ)
 
 
 def aligned16(tensors, hd: int) -> bool:
     """Every pointer and every stride 16-byte aligned, and a head-dim row
-    a whole number of 16-byte pieces: what the long regime's copies need."""
+    a whole number of 16-byte pieces: what the long and wide regimes'
+    copies need."""
     return all(t.data_ptr() % 16 == 0
                and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
                and hd * t.element_size() % 16 == 0 for t in tensors)
@@ -149,6 +161,14 @@ def plan(B: int, S: int, H: int, KH: int, hd: int, dtype: torch.dtype,
         if blocks <= MAX_BLOCKS:
             return Plan("long", 1, ks, rg, bk, 32 * rg * ks, blocks,
                         smem_bytes("long", dtype, S, hd, ks=ks, bk=bk))
+    if hd in WIDE_WARPS and dtype == torch.bfloat16 and aligned:
+        warps = WIDE_WARPS[hd]
+        hpb = max(d for d in (1, 2, 4, 8) if warps % d == 0 and R % d == 0)
+        rg = warps // hpb
+        blocks = B * KH * (R // hpb) * -(-S // (16 * rg))
+        if blocks <= MAX_BLOCKS:
+            return Plan("wide", hpb, 1, rg, WIDE_BK, 32 * warps, blocks,
+                        smem_bytes("wide", dtype, S, hd))
     blocks = B * H * -(-S // G_BQ)
     if hd <= MAX_HD and blocks <= MAX_BLOCKS:
         return Plan("generic", 1, 1, 0, 0, G_THREADS, blocks,

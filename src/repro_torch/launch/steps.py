@@ -25,6 +25,7 @@ import torch
 from .. import dtensor_layouts as DL
 from ..core import fusion
 from ..core.trees import tree_leaves, tree_map
+from ..device import graph_capture
 from ..kernels.fusion_loss.ops import fused_multimodal_loss
 from ..models import encdec, multimodal, transformer as T
 from ..models.config import ModelConfig
@@ -262,7 +263,7 @@ class CapturedStep:
                 self.warmed = True
                 return
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
+            with graph_capture(g):
                 self.body()
             self.graph = g
             self.captures += 1

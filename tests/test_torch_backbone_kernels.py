@@ -52,6 +52,10 @@ ATTN_CASES = [
     (1, 4, 2, 24, 16, None),        # GQA at S=24
     (2, 8, 2, 64, 16, 16),          # GQA + sliding window
     (1, 2, 1, 48, 32, 5),           # window not dividing the tile
+    # the wide regime's head dims: gemma3-12b's (hd 256, R = 2, a window)
+    # and kimi-k2's (hd 112, R = 8)
+    (1, 4, 2, 40, 256, 16),
+    (1, 8, 1, 24, 112, None),
 ]
 
 

@@ -3,10 +3,14 @@ never runs on the CPU unless asked, and launches its kernels only on CUDA
 tensors.  Tests that need a card carry the ``gpu`` marker and skip here
 (run them on a card with ``PYTHONPATH=src python -m pytest -m gpu
 tests/test_torch_isolation.py``)."""
+import contextlib
+import dataclasses
+import gc
 import math
 import os
 import subprocess
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -15,7 +19,7 @@ import torch
 from _torch_cpu import one_torch_thread  # noqa: F401
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.trees import tree_leaves, tree_map
-from repro_torch.device import resolve_device
+from repro_torch.device import graph_capture, resolve_device
 from repro_torch.fl.runtime import MFLExperiment
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -95,6 +99,37 @@ def no_cuda():
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+
+
+def test_graph_capture_collects_then_pauses_the_collector(monkeypatch):
+    """``device.graph_capture`` (both capture sites: the decode step and
+    the fused round) frees dead reference cycles before the capture and
+    keeps the collector off until it ends, errors included: a cycle
+    holding CUDA objects collected mid-capture invalidates it."""
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, pool=None):
+        seen.append((graph, pool, gc.isenabled()))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+
+    class Cycle:
+        pass
+
+    c = Cycle()
+    c.me = c
+    dead = weakref.ref(c)
+    del c
+    assert gc.isenabled()
+    with graph_capture("g", pool="p"):
+        assert dead() is None and not gc.isenabled()
+    assert gc.isenabled() and seen == [("g", "p", False)]
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with graph_capture("g"):
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
@@ -339,9 +374,13 @@ ATTN_CARD_CASES = [
     (2, 8, 2, 65, 64, None, torch.bfloat16),
     (1, 4, 2, 128, 64, None, torch.bfloat16),
     (2, 4, 4, 130, 16, None, torch.float32),
-    # the generic regime: hd 8 past S=64, hd 256
+    # the generic regime: hd 8 past S=64, float32 at hd 256 and 112; the
+    # wide regime: bfloat16 hd 256 (R = 2) and 112 (R = 4, ragged S)
     (2, 4, 4, 200, 8, None, torch.float32),
+    (1, 4, 2, 100, 256, 17, torch.float32),
+    (1, 8, 2, 70, 112, None, torch.float32),
     (1, 2, 1, 96, 256, None, torch.bfloat16),
+    (2, 8, 2, 70, 112, 33, torch.bfloat16),
 ]
 
 
@@ -440,7 +479,9 @@ def test_python_plans_match_the_kernels_shared_memory(cuda):
         assert ssd_load().ssd_chunk_smem_bytes(
             ssd_ops.REGIMES[p.regime], p.group, Q, nh, hp, N) == p.smem
     for B, S, H, KH, hd in [(960, 32, 4, 4, 8), (3, 48, 8, 2, 16),
-                            (1, 512, 2, 1, 128), (2, 200, 4, 4, 8)]:
+                            (1, 512, 2, 1, 128), (2, 200, 4, 4, 8),
+                            (2, 2048, 16, 8, 256), (1, 4096, 64, 8, 112),
+                            (1, 64, 6, 2, 112)]:
         for dt, code in fa_ops._DTYPES.items():
             p = fa_ops.plan(B, S, H, KH, hd, dt)
             assert fa_load().flash_attention_smem_bytes(
@@ -1004,6 +1045,105 @@ def test_flash_attention_matches_plain_at_serving_shapes(cuda, B, H, KH, S,
                                 v.transpose(1, 2), window=win).transpose(1, 2)
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
                                atol=3e-2)
+
+
+#: the wide regime (bfloat16, hd 256 and 112): (B, S, H, KH, hd, window)
+#: over hd, the window (gemma3-12b's 1024 or none), S = 2048 and a ragged
+#: 2000, R = 2 and 8, B = 1 and 2
+WIDE_CASES = [(B, S, KH * R, KH, hd, win)
+              for hd in (256, 112) for win in (None, 1024)
+              for S in (2048, 2000) for R, KH in ((2, 8), (8, 2))
+              for B in (1, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,hd,win", WIDE_CASES)
+def test_wide_attention_matches_plain_and_float64_on_card(cuda, B, S, H, KH,
+                                                          hd, win):
+    """The wide regime against its plain version (scores in float32) to
+    the bfloat16 tolerance 3e-2, and against float64 within 1.04e-2 of the
+    output's largest magnitude (at least 1): the error the long regime
+    showed at the train operands."""
+    g = torch.Generator(device="cuda").manual_seed(hd + S + H + B)
+    q, k, v = (torch.randn(s, device="cuda", generator=g).to(torch.bfloat16)
+               for s in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)))
+    assert fa_ops.plan(B, S, H, KH, hd, torch.bfloat16,
+                       fa_ops.aligned16((q, k, v), hd), win).regime == "wide"
+    fa_ops.reset_launch_counts()
+    got = fa_ops.flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert fa_ops.launch_counts() == {"flash_attention_fwd": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    tq, tk, tv = (t.transpose(1, 2) for t in (q, k, v))
+    want = fa_ref.attention_ref(tq, tk, tv, window=win).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+    f64 = fa_ref.attention_ref(tq, tk, tv, window=win,
+                               dtype=torch.float64).transpose(1, 2)
+    err = float((got.double() - f64).abs().max())
+    assert err <= 1.04e-2 * max(1.0, float(f64.abs().max())), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,win", [(256, 1024), (112, None)])
+def test_wide_attention_autograd_matches_plain_on_card(cuda, hd, win):
+    """``pallas_attention``'s autograd Function on the wide regime: the
+    forward within the bfloat16 tolerance of ``chunked_attention``, the
+    backward (a recompute through it) equal to plain autograd's."""
+    B, S, H, KH = 1, 2000, 4, 2
+    g = torch.Generator(device="cuda").manual_seed(7)
+    ins = [torch.randn(s, device="cuda", generator=g).to(torch.bfloat16)
+           for s in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd))]
+    cot = torch.randn((B, S, H, hd), device="cuda",
+                      generator=g).to(torch.bfloat16)
+    outs = []
+    for fn in (lambda *a: layers.pallas_attention(*a, win, 256),
+               lambda *a: layers.chunked_attention(*a, window=win,
+                                                   chunk=256)):
+        ts = [t.clone().requires_grad_() for t in ins]
+        fa_ops.reset_launch_counts()
+        o = fn(*ts)
+        launched = fa_ops.launch_counts()["flash_attention_fwd"]
+        torch.autograd.backward(o, cot)
+        outs.append((o.detach(), [t.grad for t in ts], launched))
+    (o1, g1, n1), (o2, g2, n2) = outs
+    assert (n1, n2) == (1, 0)
+    torch.testing.assert_close(o1.float(), o2.float(), rtol=3e-2, atol=3e-2)
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_wide_heads_keep_generic_for_unaligned_and_refuse_a_bad_plan(
+        cuda, monkeypatch):
+    """Unaligned bfloat16 operands at hd 256 take the generic regime and
+    match the plain version; a wide plan the C side does not take (float32,
+    or a head split that does not fill the block) is refused with a
+    negative code, and the wrapper raises: no fallback."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    B, S, H, KH, hd = 1, 130, 4, 2, 256
+    buf = torch.randn(B * S * H * hd + 1, device="cuda",
+                      generator=g).to(torch.bfloat16)
+    q = buf[1:].view(B, S, H, hd)                  # 2-byte offset
+    k, v = (torch.randn((B, S, KH, hd), device="cuda",
+                        generator=g).to(torch.bfloat16) for _ in range(2))
+    assert not fa_ops.aligned16((q,), hd)
+    assert fa_ops.plan(B, S, H, KH, hd, torch.bfloat16,
+                       False).regime == "generic"
+    got = fa_ops.flash_attention(q, k, v, window=None)
+    want = fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2)).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+    wide = fa_ops.plan(B, S, H, KH, hd, torch.bfloat16)
+    for bad in (dataclasses.replace(wide, row_groups=1),
+                dataclasses.replace(wide, key_tile=32)):
+        monkeypatch.setattr(fa_ops, "plan", lambda *a, **kw: bad)
+        with pytest.raises(RuntimeError, match="arguments refused"):
+            fa_ops.flash_attention(*(t.contiguous() for t in (q, k, v)))
+    monkeypatch.setattr(fa_ops, "plan", lambda *a, **kw: wide)
+    with pytest.raises(RuntimeError, match="arguments refused"):
+        fa_ops.flash_attention(*(t.float() for t in (q, k, v)))
 
 
 @pytest.mark.gpu

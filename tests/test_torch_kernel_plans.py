@@ -5,8 +5,9 @@ training path's shapes, the JAX package's kernel sweeps
 (tests/test_kernels.py) and the JAX configs' 256-token SSD chunks each get
 the regime they are built for, and every choice stays within a block's
 232 448 bytes of shared memory, 1024 threads and the grid's 2^31 - 1
-blocks.  That the C side computes the same shared memory is checked on the
-card (tests/test_torch_isolation.py)."""
+blocks (the wide attention regime's blocks leaving 8 warps on a SM's
+233 472 bytes).  That the C side computes the same shared memory is
+checked on the card (tests/test_torch_isolation.py)."""
 import pytest
 import torch
 
@@ -14,7 +15,7 @@ from _torch_cpu import one_torch_thread  # noqa: F401
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-SMEM, BLOCKS = 232448, 2 ** 31 - 1
+SMEM, BLOCKS, SM_SMEM = 232448, 2 ** 31 - 1, 233472
 
 #: (B, nc, Q, nh, hp, N) -> regime: the path's cohort (K·N = 960) and eval
 #: (240) stacks at S = 32 and 24, the JAX sweep, the JAX configs' chunk
@@ -106,14 +107,22 @@ ATTN_SHAPES = [
     ((1, 512, 2, 1, 128, torch.bfloat16), "long"),
     ((1, 512, 2, 1, 128, torch.float32), "long"),
     ((1, 64, 4, 4, 64, torch.bfloat16), "long"),          # one key tile
-    ((1, 4096, 16, 8, 256, torch.bfloat16), "generic"),   # gemma3-12b
+    ((1, 4096, 16, 8, 256, torch.bfloat16), "wide"),      # gemma3-12b
+    ((2, 2048, 16, 8, 256, torch.bfloat16), "wide"),      # its serve/train
+    ((2, 2048, 16, 8, 256, torch.float32), "generic"),
+    ((1, 96, 2, 1, 256, torch.bfloat16), "wide"),         # R = 2
+    ((2, 100, 3, 3, 256, torch.bfloat16), "wide"),        # R = 1, ragged
+    ((1, 64, 6, 2, 112, torch.bfloat16), "wide"),         # R = 3
+    ((1, 200, 8, 1, 112, torch.bfloat16), "wide"),        # R = 8
+    ((1, 256, 4, 2, 192, torch.bfloat16), "generic"),     # no wide build
     # the LM train steps' shapes (chip_smoke.py's [train] runs)
     ((8, 256, 16, 8, 128, torch.bfloat16), "long"),       # qwen3-0.6b
     ((8, 256, 8, 8, 64, torch.bfloat16), "long"),         # whisper-base
     ((4, 256, 56, 8, 128, torch.bfloat16), "long"),       # llava-next-34b
     ((4, 256, 40, 8, 128, torch.bfloat16), "long"),       # llama4-scout
     ((4, 64, 40, 8, 128, torch.bfloat16), "long"),        # its prefill
-    ((1, 4096, 64, 8, 112, torch.bfloat16), "generic"),   # kimi-k2
+    ((1, 4096, 64, 8, 112, torch.bfloat16), "wide"),      # kimi-k2
+    ((1, 4096, 64, 8, 112, torch.float32), "generic"),
     ((2, 200, 4, 4, 8, torch.float32), "generic"),
 ]
 
@@ -146,6 +155,16 @@ def test_attention_plan_regime_and_limits(shape, regime):
         else:
             assert layout == (4, 1, 32)
         assert p.blocks == B * H * -(-S // (16 * p.row_groups))
+    elif regime == "wide":
+        R, hpb, rg = H // KH, p.heads_per_block, p.row_groups
+        warps = fa_ops.WIDE_WARPS[hd]
+        assert warps == (8 if hd == 256 else 4) and p.threads == 32 * warps
+        assert hpb == max(d for d in (1, 2, 4, 8)
+                          if warps % d == 0 and R % d == 0)
+        assert hpb * rg == warps and p.c_arg == hpb and p.key_tile == 64
+        assert p.blocks == B * KH * (R // hpb) * -(-S // (16 * rg))
+        assert p.smem == 2 * (16 * warps + 4 * 64) * (hd + 8)
+        assert SM_SMEM // (p.smem + 1024) * warps >= 8   # 8 warps a SM
     else:
         assert p.threads == 128 and p.blocks == B * H * -(-S // 32)
 
@@ -179,6 +198,27 @@ def test_attention_plan_takes_unaligned_operands_off_the_long_regime():
     q = torch.zeros(2, 128, 4, 65)[..., 1:]          # 4-byte offset
     assert not fa_ops.aligned16((q,), 64)
     assert fa_ops.aligned16((torch.zeros(2, 128, 4, 64),), 64)
+
+
+@pytest.mark.parametrize("shape,window,aligned,regime", [
+    ((2, 2048, 16, 8, 256, torch.bfloat16), 1024, True, "wide"),
+    ((2, 2048, 16, 8, 256, torch.bfloat16), None, True, "wide"),
+    ((1, 4096, 64, 8, 112, torch.bfloat16), None, True, "wide"),
+    ((2, 2048, 16, 8, 256, torch.bfloat16), 1024, False, "generic"),
+    ((1, 4096, 64, 8, 112, torch.bfloat16), None, False, "generic"),
+    ((2, 2048, 16, 8, 256, torch.float32), 1024, True, "generic"),
+])
+def test_attention_plan_wide_heads_by_type_and_alignment(shape, window,
+                                                         aligned, regime):
+    """gemma3-12b's local and global layers and kimi-k2's attention take
+    the wide regime (gemma3: a block of 8 warps serves the two query heads
+    of a KV head, 64 rows each; kimi-k2: 4 warps, four heads of 16 rows);
+    float32 and unaligned operands keep the generic tiles."""
+    p = fa_ops.plan(*shape, aligned=aligned, window=window)
+    assert p.regime == regime and p.smem <= SMEM
+    if regime == "wide":
+        assert (p.heads_per_block, p.row_groups) == (
+            (2, 4) if shape[4] == 256 else (4, 1))
 
 
 def test_attention_plan_raises_past_the_largest_head_dim():
