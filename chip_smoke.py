@@ -128,12 +128,15 @@ Phases, each of which fails the run when it fails:
 8. ``[dryrun]`` and ``[examples]``: ``python -m repro_torch.launch.dryrun
    --device cuda`` on the fake 16x16 mesh for qwen3-0.6b train_4k and
    decode_32k, llama4-scout-17b-a16e train_4k, gemma3-12b long_500k and
-   jamba-v0.1-52b train_4k (one subprocess each, all started together,
-   cut to 2 super-blocks; no kernel — the step runs ``impl="xla"`` on
-   fake tensors), each combo's status, counted FLOPs and bytes a rank,
-   global / per-rank FLOPs, temporary peak a rank and collective bytes
-   printed, its status held to the CPU's and llama4-scout's global /
-   per-rank FLOPs to at least 200 (the MoE dispatch split over ranks);
+   jamba-v0.1-52b train_4k, and on the fake 2x16x16 mesh for qwen3-0.6b
+   train_4k (one subprocess each, all started together, cut to 2
+   super-blocks; no kernel — the step runs ``impl="xla"`` on fake
+   tensors), each combo's status, counted FLOPs and bytes a rank, global
+   / per-rank FLOPs, temporary peak a rank and collective bytes printed
+   (the 2x16x16 combo's also its per-rank FLOPs over the 16x16 one's),
+   its status held to the CPU's, llama4-scout's global / per-rank FLOPs
+   to at least 200 (the MoE dispatch split over ranks) and qwen3-0.6b's
+   on 2x16x16 to at least 340;
    meanwhile each twin of ``examples/*.py`` (``examples/torch``) runs
    here on the card at small arguments with the counters set to 0 just
    before it, and fails if a kernel of its path was not launched
@@ -373,18 +376,23 @@ TOL_SHARD = dict(rtol=2e-6, atol=1e-7)
 TOL_GRAPH = 1e-6
 
 #: [dryrun]: the LM-scale dry run (``repro_torch.launch.dryrun``) on the
-#: fake 16x16 mesh, one subprocess a combo (the fake group stays out of
-#: this process), all started together and cut to DRYRUN_BLOCKS
-#: super-blocks; each combo must come out as it does on the CPU
-#: (README's table of statuses)
-DRYRUN_COMBOS = (("qwen3-0.6b", "train_4k", "ok"),
-                 ("qwen3-0.6b", "decode_32k", "ok"),
-                 ("llama4-scout-17b-a16e", "train_4k", "ok"),
-                 ("gemma3-12b", "long_500k", "ok"),
-                 ("jamba-v0.1-52b", "train_4k", "ok"))
-#: the least global / per-rank counted FLOPs of a combo (256 is an even
-#: split of the 16x16 mesh)
-DRYRUN_MIN_SPLIT = {("llama4-scout-17b-a16e", "train_4k"): 200}
+#: fake 16x16 or 2x16x16 mesh, one subprocess a combo (the fake group
+#: stays out of this process), all started together and cut to
+#: DRYRUN_BLOCKS super-blocks; each combo must come out as it does on the
+#: CPU (README's table of statuses)
+DRYRUN_COMBOS = (("qwen3-0.6b", "train_4k", "16x16", "ok"),
+                 ("qwen3-0.6b", "decode_32k", "16x16", "ok"),
+                 ("llama4-scout-17b-a16e", "train_4k", "16x16", "ok"),
+                 ("gemma3-12b", "long_500k", "16x16", "ok"),
+                 ("jamba-v0.1-52b", "train_4k", "16x16", "ok"),
+                 ("qwen3-0.6b", "train_4k", "2x16x16", "ok"))
+#: the least global / per-rank counted FLOPs of a combo (256 / 512 is an
+#: even split of the 16x16 / 2x16x16 mesh); qwen3-0.6b's 2x16x16 train
+#: step: 256 / (0.638 x 1.15), the weakest split whose per-rank FLOPs over
+#: the 16x16 step's stay within 1.15x the JAX package's compile's ratio
+#: (0.638 at one super-block, README)
+DRYRUN_MIN_SPLIT = {("llama4-scout-17b-a16e", "train_4k", "16x16"): 200,
+                    ("qwen3-0.6b", "train_4k", "2x16x16"): 340}
 DRYRUN_BLOCKS = 2
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
 DRYRUN_TIMEOUT = 600
@@ -3591,40 +3599,39 @@ def rank_serve(torch, counters, mesh, init, new, feats, counts):
 def dryrun_start():
     """Start one ``python -m repro_torch.launch.dryrun --device cuda``
     a combo of ``DRYRUN_COMBOS``, all together."""
-    os.makedirs(DRYRUN_DIR, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    procs = []
-    for arch, shape, _ in DRYRUN_COMBOS:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
-               "cuda", "--arch", arch, "--shape", shape, "--blocks",
-               str(DRYRUN_BLOCKS), "--force", "--out", DRYRUN_DIR]
-        log = open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}.log"), "w")
-        procs.append(subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=log,
-                                      stderr=subprocess.STDOUT))
-        log.close()
+    from repro_torch.launch import dryrun as D
+    procs = [D.start_combo(arch, mesh, DRYRUN_DIR, shape_name=shape,
+                           blocks=DRYRUN_BLOCKS)
+             for arch, shape, mesh, _ in DRYRUN_COMBOS]
     return procs, time.perf_counter()
 
 
 def dryrun_finish(started, card):
     """Wait for the dry-run processes (each is stopped before this
     returns) and hold every record's status to the CPU's."""
+    from repro_torch.launch import dryrun as D
     procs, t0 = started
     bad = []
+    per_rank = {}
     try:
-        for p, (arch, shape, want) in zip(procs, DRYRUN_COMBOS):
+        for (p, log), (arch, shape, mesh, want) in zip(procs, DRYRUN_COMBOS):
             p.wait(timeout=DRYRUN_TIMEOUT)
             if p.returncode:
-                with open(os.path.join(DRYRUN_DIR,
-                                       f"{arch}__{shape}.log")) as f:
-                    bad.append(f"dryrun {arch} {shape}: exit "
+                with open(log) as f:
+                    bad.append(f"dryrun {arch} {shape} {mesh}: exit "
                                f"{p.returncode}\n{f.read()[-3000:]}")
                 continue
-            tag = f"{arch}__{shape}__16x16__blocks{DRYRUN_BLOCKS}"
-            with open(os.path.join(DRYRUN_DIR, tag + ".json")) as f:
-                rec = json.load(f)
+            tag = D.record_tag(arch, shape, mesh, blocks=DRYRUN_BLOCKS)
+            rec = D.read_record(DRYRUN_DIR, tag)
             coll = rec.get("collectives", {})
             split = (rec.get("counted_flops_global", 0)
                      / max(rec.get("counted_flops_per_rank", 0), 1))
+            per_rank[arch, shape, mesh] = rec.get("counted_flops_per_rank")
+            # a 2x16x16 combo: its per-rank FLOPs over the 16x16 combo's
+            ratio = ""
+            if mesh == "2x16x16" and per_rank.get((arch, shape, "16x16")):
+                ratio = (f"; per-rank flops 2x16x16 / 16x16 "
+                         f"{rec.get('counted_flops_per_rank', 0) / per_rank[arch, shape, '16x16']}")
             print(f"[dryrun] {tag}: {rec['status']} step "
                   f"{rec.get('step_s')} s; counted flops a rank "
                   f"{rec.get('counted_flops_per_rank')} (global "
@@ -3635,16 +3642,16 @@ def dryrun_finish(started, card):
                   f"argument bytes a rank "
                   f"{rec.get('argument_size_in_bytes')}; collective "
                   f"operand bytes {coll.get('total_operand_bytes')} "
-                  f"{coll.get('op_counts')}")
+                  f"{coll.get('op_counts')}{ratio}")
             if rec["status"] != want:
                 bad.append(f"dryrun {tag}: {rec['status']} on the card, "
                            f"{want} on the CPU: {rec.get('error')}")
-            least = DRYRUN_MIN_SPLIT.get((arch, shape))
+            least = DRYRUN_MIN_SPLIT.get((arch, shape, mesh))
             if least and rec["status"] == "ok" and split < least:
                 bad.append(f"dryrun {tag}: global / per-rank flops {split} "
                            f"< {least}")
     finally:
-        for p in procs:
+        for p, _ in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()

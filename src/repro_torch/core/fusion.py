@@ -44,7 +44,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     real samples — padded rows of a stacked client batch contribute nothing.
     """
     lg = _float(logits)
-    lse = torch.logsumexp(lg, dim=-1)
+    lse = DL.logsumexp(lg)
     ce = lse - DL.gold_logit(lg, labels)
     if sample_mask is None:
         return ce.mean()

@@ -21,10 +21,31 @@ import torch
 import torch.nn.functional as F
 
 
+def _contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a DTensor."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def constrain(x: torch.Tensor, placements) -> torch.Tensor:
@@ -103,53 +124,185 @@ def batch_split(t: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     return t.redistribute(t.device_mesh, pls)
 
 
+def split_groups(t: torch.Tensor) -> torch.Tensor:
+    """Attention's operand [B, G, ...] (G the KV-head groups) for the
+    chunked contraction, whose batch dims are its first two.  A DTensor
+    split along dim 0 only (``batch_split``) is viewed as [B·G, 1, ...]
+    and the merged dim split over each mesh dim, in the mesh's order,
+    where the split so far times its size still divides B·G: a mesh dim
+    that the batch cannot take (8 sequences a data shard on a 16-rank
+    model axis) splits the groups of a sequence, as XLA splits the heads
+    over it, rather than every rank of it repeating the same attention.
+    Anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    t = t.reshape(t.shape[0] * t.shape[1], 1, *t.shape[2:])
+    pls = _moved_split(t, range(t.device_mesh.ndim), 0)
+    if tuple(pls) == tuple(t.placements):
+        return t
+    # the operand (a permuted view) and its returning gradient made
+    # contiguous: DTensor gives the redistributed tensor and its gradient
+    # the global strides of a permuted layout while the rank's tensor
+    # comes out of the collective contiguous, and the view of the
+    # gradient back to the projection's [.., H·hd] fails on it
+    t = t.contiguous()
+    return _ContiguousGrad.apply(t.redistribute(t.device_mesh, pls))
+
+
+def join_groups(t: torch.Tensor, batch: int) -> torch.Tensor:
+    """``split_groups`` undone: a DTensor [B·G, 1, ...] brought to a split
+    the batch ``B`` alone takes (``batch_split``) and viewed as
+    [B, G, ...]; anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    t = batch_split(t, batch)
+    return t.reshape(batch, t.shape[0] // batch, *t.shape[2:])
+
+
 def fsdp_gather(w: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
-    """A DTensor weight ``w`` gathered over each mesh dim that splits
-    ``by``'s dim 0 (the batch of the tokens ``w`` meets), its other
-    placements kept: FSDP's gather of a weight before its use, so each
-    rank's GEMMs take its own rows whole and no gradient comes back as a
-    partial sum the backward would meet with the weight gathered whole
-    anyway.  Anything else as it is."""
+    """A DTensor weight ``w`` gathered over each mesh dim that splits one
+    of ``by``'s dims other than its last (the tokens ``w`` meets; the last
+    is the contraction), its other placements kept: FSDP's gather of a
+    weight before its use, so each rank's GEMMs take its own rows whole
+    and no gradient comes back as a partial sum the backward would meet
+    with the weight gathered whole anyway.  Anything else as it is."""
     if not is_dtensor(w) or not is_dtensor(by):
         return w
     from torch.distributed.tensor import Replicate
-    pls = [Replicate() if b.is_shard(0) else pl
+    last = by.dim() - 1
+    pls = [Replicate() if b.is_shard() and b.dim != last else pl
            for pl, b in zip(w.placements, by.placements)]
     return constrain(w, pls)
 
 
+def matmul_operands(x: torch.Tensor, w: torch.Tensor):
+    """(x, w) laid out for ``x @ w`` (w [..., d_in, d_out]) if both are
+    DTensors: ``w`` gathered as ``fsdp_gather`` gathers it; ``x``'s last
+    dim split over each mesh dim that splits ``w``'s ``d_in`` and
+    replicates ``x``, so the rank keeps only its slice of ``x`` for the
+    backward and computes the weight gradient of its own rows; and
+    ``w``'s ``d_out`` split over each mesh dim that replicates both, where
+    the split so far times its size divides it, so a small weight left
+    whole on every rank is not applied to the same tokens on all of them.
+    Each is a slice of what the rank holds, no collective.  Anything else
+    as it is."""
+    if not is_dtensor(x) or not is_dtensor(w):
+        return x, w
+    from torch.distributed.tensor import Shard
+    w = fsdp_gather(w, x)
+    x = constrain(x, [Shard(x.dim() - 1) if px.is_replicate()
+                      and pw.is_shard(w.dim() - 2) else px
+                      for px, pw in zip(x.placements, w.placements)])
+    both = [i for i, (px, pw) in enumerate(zip(x.placements, w.placements))
+            if px.is_replicate() and pw.is_replicate()]
+    if both:
+        w = constrain(w, _moved_split(w, both, -1))
+    return x, w
+
+
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` (an embedding lookup).  On DTensors the table is
-    gathered whole, as FSDP gathers a weight before its use, and each rank
-    looks up its own ids: the result is laid out as ``ids`` are, and the
-    table's gradient is the ranks' partial sums.  (A lookup into rows
-    split over ranks needs a data-dependent mask, which fake tensors
-    cannot compute, and DTensor's own index rule does not take ids split
-    over two mesh dims.)"""
+    """``table[ids]`` (an embedding lookup).  On DTensors whose table rows
+    (the vocab) are split over ranks, each rank looks its ids up in its
+    own rows: the table is gathered over every other mesh dim (FSDP's
+    gather of the columns, and the rows over a mesh dim that also splits
+    the ids), the ids are shifted by the rank's first row and clamped into
+    its rows, and the rows of ids outside them are zeroed — the shapes are
+    static, so fake tensors run it.  The result is a partial sum over the
+    mesh dims that split the rows, reduced as ``reduce_partial`` reduces
+    it, and laid out as ``ids`` are elsewhere; the table's gradient lands
+    on each rank's own rows.  A table whose rows are not split (its
+    columns only, or nothing) is gathered whole, as FSDP gathers a weight
+    before its use, and each rank looks up its own ids (DTensor's own
+    index rule does not take ids split over two mesh dims)."""
     if not is_dtensor(table):
         return table[ids]
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = table.device_mesh
-    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
-        grad_placements=[Partial()] * mesh.ndim)
-    out = whole[ids.to_local()]
+    rows = [i for i, (pl, by) in enumerate(zip(table.placements,
+                                               ids.placements))
+            if pl.is_shard(0) and not by.is_shard()]
+    pls = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    grad = [Shard(0) if i in rows else Partial() if by.is_shard()
+            else Replicate() for i, by in enumerate(ids.placements)]
+    local = table.redistribute(mesh, pls).to_local(grad_placements=grad)
+    n = local.shape[0]
+    j = ids.to_local() - _shard_index(mesh, rows) * n
+    out = local[j.clamp(0, n - 1)]
+    if rows:
+        out = torch.where(((j >= 0) & (j < n))[..., None], out,
+                          out.new_zeros(()))
     shape = (*ids.shape, table.shape[-1])
-    return DTensor.from_local(out, mesh, ids.placements, run_check=False,
-                              shape=shape,
-                              stride=torch.empty(shape, device="meta")
-                              .stride())
+    placed = [Partial() if i in rows else pl
+              for i, pl in enumerate(ids.placements)]
+    return reduce_partial(DTensor.from_local(
+        out, mesh, placed, run_check=False, shape=shape,
+        stride=_contiguous_stride(shape)))
+
+
+def _shard_index(mesh, dims) -> int:
+    """This rank's shard of a tensor dim split over the mesh dims
+    ``dims`` (in the mesh's order, the first the coarsest)."""
+    coord, k = mesh.get_coordinate(), 0
+    for i in dims:
+        k = k * mesh.size(i) + coord[i]
+    return k
+
+
+def _label_mask(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``arange(V) == labels[..., None]`` for lg [..., V], a DTensor laid
+    out as ``lg``: each rank compares its own vocab positions with its own
+    rows' labels and makes its block of the mask, so no rank holds a
+    whole [..., V] row of it and no torch release's broadcast rule picks
+    another layout."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, last = lg.device_mesh, lg.dim() - 1
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    rows = constrain(labels, [Replicate() if pl.is_shard(last) else pl
+                              for pl in lg.placements])
+    dims = [i for i, pl in enumerate(lg.placements) if pl.is_shard(last)]
+    n = lg.to_local().shape[-1]
+    first = _shard_index(mesh, dims) * n
+    hit = torch.arange(first, first + n, device=lg.device) == \
+        rows.to_local()[..., None].long()
+    return DTensor.from_local(hit, mesh, lg.placements, run_check=False,
+                              shape=lg.shape,
+                              stride=_contiguous_stride(lg.shape))
 
 
 def gold_logit(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """``lg[..., labels]``: each label's logit (lg [..., V], labels [...]
     ints).  On a DTensor it is the masked sum over the vocab dim, the same
-    value: a gather along a dim split over ranks builds a data-dependent
-    mask, which fake tensors cannot."""
+    value, the mask laid out as ``lg`` is (``_label_mask``): a gather
+    along a dim split over ranks builds a data-dependent mask, which fake
+    tensors cannot.  The sum is reduced and pinned, so its
+    gradient comes back split as its rows are before it meets the vocab
+    dim (a gradient replicated over a mesh dim that splits the rows would
+    be expanded to whole [..., V] rows first)."""
     idx = labels[..., None].long()
     if not is_dtensor(lg):
         return torch.gather(lg, -1, idx)[..., 0]
-    hit = torch.arange(lg.shape[-1], device=lg.device) == idx
-    return torch.where(hit, lg, lg.new_zeros(())).sum(-1)
+    lg = reduce_partial(lg)
+    hit = _label_mask(lg, labels)
+    return pin(reduce_partial(torch.where(hit, lg, lg.new_zeros(())).sum(-1)))
+
+
+def logsumexp(lg: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(lg, -1)``.  On a DTensor whose last dim is split
+    over ranks it is the log-sum-exp of the split dim: each rank's max
+    reduced as a max and its sum of ``exp(lg - max)`` reduced as a sum
+    across the ranks that split the dim (one value a row each), the log
+    taken after; no rank holds the [..., V] row whole.  The max is a
+    constant to autograd, so the gradient is the softmax, as
+    ``torch.logsumexp``'s."""
+    if not is_dtensor(lg) or not any(pl.is_shard(lg.dim() - 1)
+                                     for pl in lg.placements):
+        return torch.logsumexp(lg, dim=-1)
+    lg = reduce_partial(lg)
+    top = reduce_partial(lg.detach().amax(-1, keepdim=True))
+    total = reduce_partial(torch.exp(lg - top).sum(-1))
+    return torch.log(total) + top[..., 0]
 
 
 def reduce_partial(t: torch.Tensor, dim: Optional[int] = None
@@ -258,8 +411,7 @@ def by_group(fn, *args):
     def wrap(o):
         shape = (o.shape[0] * split, *o.shape[1:])
         return DTensor.from_local(o, mesh, pls, run_check=False, shape=shape,
-                                  stride=torch.empty(shape, device="meta")
-                                  .stride())
+                                  stride=_contiguous_stride(shape))
     return tuple(map(wrap, out))
 
 

@@ -24,10 +24,15 @@ sees the ops below DTensor, counts them:
 
 * ``counted_flops_per_rank``: rank 0's local matmul-class ops, forward
   and backward, by ``torch.utils.flop_counter``'s formulas;
+* ``counted_batched_flops_per_rank``: the part of it in products of a
+  batch of more than one matrix (attention's score and value products,
+  the experts' GEMMs), the JAX compile's dots with batch dimensions;
 * ``counted_flops_global``: the same formulas on the DTensor ops, i.e. on
   the unsharded shapes;
 * ``counted_bytes_per_rank``: operand plus result bytes of every local op
-  that is not a view (XLA's "bytes accessed", without XLA's fusion);
+  that moves bytes — not a view, an alias, a device query or a
+  collective's result handed on (XLA's "bytes accessed", without XLA's
+  fusion);
 * ``collectives``: ``hlo_analysis.summarize`` of the collectives DTensor
   issued (``collect``);
 * ``argument_size_in_bytes``/``output_size_in_bytes``: rank 0's shard
@@ -50,6 +55,7 @@ import functools
 import json
 import math
 import os
+import subprocess
 import sys
 import time
 import traceback
@@ -141,15 +147,38 @@ def _meta_like(obj):
         if isinstance(t, torch.Tensor) else t, obj)
 
 
-_NOT_ACCESSED = {torch.ops.aten.detach, torch.ops.aten.alias,
-                 torch.ops.aten._local_scalar_dense,
-                 torch.ops._c10d_functional.wait_tensor}
-
-
 # a collective's result handed on (a fake tensor gives it a storage anew)
 _SAME_RESULT = {getattr(torch.ops._c10d_functional, name)
                 for name in ("wait_tensor", "_wrap_tensor_autograd")
                 if hasattr(torch.ops._c10d_functional, name)}
+
+# products of a batch of matrices: with a batch > 1, attention's score and
+# value products and the experts' GEMMs (a projection's batch is its
+# one client)
+_BATCHED = {torch.ops.aten.bmm, torch.ops.aten.baddbmm}
+
+# ops that read and write no tensor's bytes
+_NOT_ACCESSED = {torch.ops.aten.detach, torch.ops.aten.alias,
+                 torch.ops.aten._local_scalar_dense,
+                 torch.ops.prim.device} | _SAME_RESULT
+
+
+def _storages(obj) -> set:
+    return {t.untyped_storage()._cdata for t in tree_flatten(obj)[0]
+            if isinstance(t, torch.Tensor)}
+
+
+def _moves_no_bytes(func, args, kwargs, out) -> bool:
+    """Whether a local op reads and writes no bytes: a view, an op of
+    ``_NOT_ACCESSED``, or an op that writes nothing and returns its
+    operand's storage."""
+    if func.is_view or func._overloadpacket in _NOT_ACCESSED:
+        return True
+    if any(r.alias_info is not None and r.alias_info.is_write
+           for r in func._schema.returns):
+        return False
+    made = _storages(out)
+    return bool(made) and made <= _storages((args, kwargs))
 
 
 class StepCounter(CommDebugMode):
@@ -170,6 +199,8 @@ class StepCounter(CommDebugMode):
     def __init__(self, mesh=None):
         super().__init__()
         self.flops_local = 0
+        self.flops_batched = 0
+        self._batched_op = None
         self.flops_global = 0
         self.bytes_local = 0
         self.live_bytes = 0
@@ -233,6 +264,11 @@ class StepCounter(CommDebugMode):
                 margs, mkw = _meta_like((args, kwargs))
                 self.flops_global += _flops(func, args, kwargs,
                                             func(*margs, **mkw))
+            # a product of a batch of matrices, judged on the global
+            # shapes (a rank's share of the batch may be one matrix)
+            batched = func._overloadpacket in _BATCHED and \
+                args[0].shape[0] > 1
+            self._batched_op = func if batched else None
             return super().__torch_dispatch__(func, types, args, kwargs)
         out = super().__torch_dispatch__(func, types, args, kwargs)
         if _in_sharding_propagation():
@@ -242,11 +278,15 @@ class StepCounter(CommDebugMode):
             self._moved(args[0], out)
         else:
             self._made(out)
-        self.flops_local += _flops(func, args, kwargs, out)
+        flops = _flops(func, args, kwargs, out)
+        self.flops_local += flops
+        if func is self._batched_op:
+            self.flops_batched += flops
+            self._batched_op = None
         if pk in self.comm_registry:
             axis, g = self._group(args)
             self.log.append((pk.__name__, _tensor_bytes(out), g, axis))
-        if not (func.is_view or pk in _NOT_ACCESSED):
+        if not _moves_no_bytes(func, args, kwargs, out):
             self.bytes_local += _tensor_bytes((args, kwargs, out))
         return out
 
@@ -406,6 +446,7 @@ def analyse(fn, args, info) -> dict:
     out["output_size_in_bytes"] = _nbytes(
         list(result) if isinstance(result, tuple) else [result])
     out["counted_flops_per_rank"] = counter.flops_local
+    out["counted_batched_flops_per_rank"] = counter.flops_batched
     out["counted_flops_global"] = counter.flops_global
     out["counted_bytes_per_rank"] = counter.bytes_local
     out["counted_peak_bytes_per_rank"] = counter.peak_bytes
@@ -426,6 +467,56 @@ def cut_depth(cfg, blocks: int):
     return dataclasses.replace(cfg, **kw)
 
 
+def record_tag(arch: str, shape_name: str, mesh_tag: str,
+               overrides: dict = None, blocks: int = None) -> str:
+    """The name of a combo's record, ``<out>/<tag>.json``."""
+    tag = f"{arch}__{shape_name}__{mesh_tag}"
+    if overrides:
+        tag += "__" + "_".join(f"{k}{v}" for k, v in sorted(overrides.items()))
+    if blocks:
+        tag += f"__blocks{blocks}"
+    return tag
+
+
+def read_record(out_dir: str, tag: str):
+    """The record ``<out_dir>/<tag>.json``, or None."""
+    path = os.path.join(out_dir, tag + ".json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def start_combo(arch: str, mesh_tag: str, out_dir: str, *,
+                shape_name: str = None, blocks: int = None,
+                overrides: dict = None, device: str = "cuda"):
+    """Start ``python -m repro_torch.launch.dryrun --force`` on ``arch``
+    (every shape, or ``shape_name``) on one mesh in a process of its own —
+    the fake group stays in the process that joins it — its output to
+    ``<out_dir>/<tag>.log`` (``record_tag``, shape ``all`` for every
+    shape).  Returns (the process, the log's path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+           device, "--arch", arch, "--force", "--out", out_dir]
+    if shape_name:
+        cmd += ["--shape", shape_name]
+    if mesh_tag == _mesh_tag(True):
+        cmd.append("--multi-pod")
+    if blocks:
+        cmd += ["--blocks", str(blocks)]
+    for k, v in sorted((overrides or {}).items()):
+        cmd += ["--override", f"{k}={v}"]
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    log = os.path.join(out_dir, record_tag(arch, shape_name or "all",
+                                           mesh_tag, overrides, blocks)
+                       + ".log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=src),
+                                stdout=f, stderr=subprocess.STDOUT)
+    return proc, log
+
+
 def run_one(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
             overrides: dict = None, out_dir: str = RESULTS_DIR,
             device="cuda", blocks: int = None) -> dict:
@@ -433,11 +524,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, force: bool = False,
     unless ``force``).  ``blocks`` cuts the depth (``cut_depth``)."""
     os.makedirs(out_dir, exist_ok=True)
     mesh_tag = _mesh_tag(multi_pod)
-    tag = f"{arch}__{shape_name}__{mesh_tag}"
-    if overrides:
-        tag += "__" + "_".join(f"{k}{v}" for k, v in sorted(overrides.items()))
-    if blocks:
-        tag += f"__blocks{blocks}"
+    tag = record_tag(arch, shape_name, mesh_tag, overrides, blocks)
     path = os.path.join(out_dir, tag + ".json")
     if os.path.exists(path) and not force:
         with open(path) as f:
@@ -517,6 +604,17 @@ def calibrate(arch: str, shape_name: str, multi_pod: bool = False,
     return rec
 
 
+def parse_overrides(pairs) -> dict:
+    """``--override k=v`` arguments as the levers' dict (ints, booleans,
+    else strings)."""
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        out[k] = (int(v) if v.isdigit() else
+                  v == "true" if v in ("true", "false") else v)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -536,11 +634,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     resolve_device(args.device)
 
-    overrides = {}
-    for kv in args.override:
-        k, v = kv.split("=", 1)
-        overrides[k] = (int(v) if v.isdigit() else
-                        v == "true" if v in ("true", "false") else v)
+    overrides = parse_overrides(args.override)
 
     fake_world(512 if args.multi_pod else 256)
     archs = [args.arch] if args.arch else list(ARCHS)

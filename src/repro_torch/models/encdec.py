@@ -162,8 +162,8 @@ def audio_head_logits(params, enc_out):
     """Decision-fusion audio submodel: pooled encoder -> vocab logits
     [B, V]."""
     pooled = enc_out.mean(dim=1)
-    h = F.gelu(torch.matmul(*L.promote(pooled, params["audio_head"]["w1"])),
-               approximate="tanh")
+    h = F.gelu(torch.matmul(*DL.matmul_operands(
+        *L.promote(pooled, params["audio_head"]["w1"]))), approximate="tanh")
     return torch.matmul(*L.promote(h, params["audio_head"]["w2"]))
 
 

@@ -59,8 +59,10 @@ def promote(x: torch.Tensor, w: torch.Tensor):
 
 def kmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [K, ..., d_in] @ w [K, d_in, d_out] -> [K, ..., d_out], in the
-    operands' common type (``promote``)."""
+    operands' common type (``promote``); DTensors laid out by
+    ``dtensor_layouts.matmul_operands``."""
     x, w = promote(x, w)
+    x, w = DL.matmul_operands(x, w)
     K = x.shape[0]
     y = torch.bmm(x.reshape(K, -1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
@@ -101,8 +103,10 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
 
 def dense(p, x):
     """x @ w (+ b) per client: ``p["w"]`` [K, d_in, d_out], optional
-    ``p["b"]`` [K, d_out]."""
-    y = kmm(x, p["w"])
+    ``p["b"]`` [K, d_out].  A DTensor product that is a partial sum (the
+    contraction split over ranks) is reduced, scattered over the batch
+    where it divides, and pinned, so its gradient comes back reduced."""
+    y = DL.pin(DL.reduce_partial(kmm(x, p["w"]), 1))
     if "b" in p:
         y = y + per_client(p["b"], y)
     return y
@@ -195,9 +199,10 @@ def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024,
         chunk //= 2
     dev = q.device
 
-    qg = q.reshape(B, Sq, KH, R, hd).permute(0, 2, 3, 1, 4)   # [B,KH,R,Sq,hd]
-    kg = k.permute(0, 2, 1, 3)                                 # [B,KH,Sk,hd]
-    vg = v.permute(0, 2, 1, 3)
+    # [B,KH,R,Sq,hd] and [B,KH,Sk,hd]; a DTensor's [B·KH,1,...]
+    qg = DL.split_groups(q.reshape(B, Sq, KH, R, hd).permute(0, 2, 3, 1, 4))
+    kg = DL.split_groups(k.permute(0, 2, 1, 3))
+    vg = DL.split_groups(v.permute(0, 2, 1, 3))
     outs = []
     if window is None:
         # causal: each q chunk sees keys [0, t0 + chunk); bidirectional:
@@ -224,7 +229,7 @@ def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024,
             outs.append(_attn_chunk(qg[:, :, :, t0:t0 + chunk],
                                     kp[:, :, t0:t0 + span],
                                     vp[:, :, t0:t0 + span], mask, scale))
-    out = torch.cat(outs, dim=3)                               # [B,KH,R,Sq,hd]
+    out = DL.join_groups(torch.cat(outs, dim=3), B)            # [B,KH,R,Sq,hd]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import dtensor_layouts as DL
 from ..core.trees import tree_map
 from ..kernels.fusion_loss.ops import fused_multimodal_loss
 from . import transformer as T
@@ -105,10 +106,11 @@ def _vision_logits(params, patches):
     """Pooled patches [B, P, d_patch] -> vision logits [B, V], in the
     promoted type as in the JAX package: float32 patches meeting bfloat16
     weights compute the whole head in float32."""
-    pv = torch.matmul(*promote(patches, params["vision"]["proj"]))
-    h = F.gelu(torch.matmul(*promote(pv.mean(dim=1),
-                                     params["vision"]["w1"])),
-               approximate="tanh")
+    pv = torch.matmul(*DL.matmul_operands(
+        *promote(patches, params["vision"]["proj"])))
+    h = F.gelu(torch.matmul(*DL.matmul_operands(
+        *promote(pv.mean(dim=1), params["vision"]["w1"]))),
+        approximate="tanh")
     return torch.matmul(*promote(h, params["vision"]["w2"]))
 
 
@@ -165,20 +167,26 @@ def vlm_loss_chunked(params, batch, cfg: ModelConfig, chunk: int, *,
         return tot / nc, aux
 
     vision = vision.float()
-    v_lse = torch.logsumexp(vision, dim=-1)                   # [B]
+    v_lse = DL.logsumexp(vision)                              # [B]
     t_tot = h.new_zeros((), dtype=torch.float32)
     f_tot = h.new_zeros((), dtype=torch.float32)
+    gold_v = []
     for t0 in range(0, S, chunk):
-        ll = labels[:, t0:t0 + chunk, None].long()
+        ll = labels[:, t0:t0 + chunk]
         text = T.unembed(params, h[:, t0:t0 + chunk], cfg).float()
-        gold_t = torch.gather(text, -1, ll)[..., 0]
-        t_tot = t_tot + (torch.logsumexp(text, dim=-1) - gold_t).sum()
+        gold_t = DL.gold_logit(text, ll)
+        t_tot = t_tot + (DL.logsumexp(text) - gold_t).sum()
         fused = 0.5 * (text + vision[:, None, :])
-        gold_f = torch.gather(fused, -1, ll)[..., 0]
-        f_tot = f_tot + (torch.logsumexp(fused, dim=-1) - gold_f).sum()
+        gold_f = DL.gold_logit(fused, ll)
+        f_tot = f_tot + (DL.logsumexp(fused) - gold_f).sum()
+        if DL.is_dtensor(vision):
+            # a vocab-split head's gold logits a chunk's [B, c, V] at a time
+            gold_v.append(DL.gold_logit(
+                vision[:, None, :].expand(-1, ll.shape[1], -1), ll))
     n = B * S
     # the vision CE broadcast over the positions: its lse is constant per
     # sequence, the gold logit follows each position's label
-    g_vision = (v_lse[:, None]
-                - torch.gather(vision, -1, labels.long())).mean()
+    gold_v = (torch.cat(gold_v, dim=1) if gold_v
+              else torch.gather(vision, -1, labels.long()))
+    g_vision = (v_lse[:, None] - gold_v).mean()
     return t_tot / n + f_tot / n + g_vision, aux

@@ -248,7 +248,7 @@ def forward(params, tokens, cfg: ModelConfig, *, n_groups: int = 1,
 def lm_loss(logits, labels, mask=None):
     """Mean next-token CE in fp32.  logits [B, S, V], labels [B, S]."""
     lg = logits.float()
-    nll = torch.logsumexp(lg, dim=-1) - DL.gold_logit(lg, labels)
+    nll = DL.logsumexp(lg) - DL.gold_logit(lg, labels)
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
@@ -265,7 +265,7 @@ def chunked_lm_loss(params, h, labels, cfg: ModelConfig, chunk: int):
     for t0 in range(0, S, chunk):
         lg = unembed(params, h[:, t0:t0 + chunk], cfg).float()
         gold = DL.gold_logit(lg, labels[:, t0:t0 + chunk])
-        tot = tot + (torch.logsumexp(lg, dim=-1) - gold).sum()
+        tot = tot + (DL.logsumexp(lg) - gold).sum()
     return tot / (B * S)
 
 

@@ -22,7 +22,17 @@ dryrun}``) against the JAX package's.
 * the split dispatch's values: the MoE layer on DTensors of a real 2×2
   gloo mesh (4 rank subprocesses) against the plain path on the same
   numbers — output, the aux loss (the mean over all groups) and every
-  gradient.
+  gradient;
+* per-rank FLOPs against the JAX package's compile (``hlo_flops``) on
+  small meshes where the port once split unevenly: 2 KV heads on a 4×4
+  mesh, and 2 sequences a data shard on a 16-rank model axis (the
+  2×16×16 train steps' case), each side in a subprocess; and on the
+  16×16 production mesh outside attention, with attention's departure
+  (XLA splits it over the model axis only) held to its measured share;
+* the vocab-split log-sum-exp, gold logit and masked embedding lookup on
+  4 gloo ranks against the plain ops, values and gradients; the
+  log-sum-exp's peak on 2 fake ranks against a hand count (no [.., V]
+  gather); ``StepCounter`` counting no bytes for ops that move none.
 
 Fake groups of 2 and 4 ranks live in this process only for the test that
 needs them; a larger one is made in a subprocess.
@@ -577,3 +587,258 @@ def test_attn_chunk_invariance():
     l32, _ = T.forward(params, tokens, cfg, attn_chunk=32)
     torch.testing.assert_close(l8.float(), l32.float(), rtol=2e-4,
                                atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# (h) per-rank FLOPs against the JAX compile on small meshes
+# ---------------------------------------------------------------------------
+# one super-block of qwen3-0.6b with ``n_kv_heads`` KV heads, a train
+# step of B sequences of S tokens on a ("data", "model") mesh; each side
+# prints its per-rank FLOPs
+_JAX_SMALL = r"""
+import json, os, sys
+os.environ["_REPRO_EXTRA_XLA"] = ""
+sys.path.insert(0, sys.argv[2])
+from dryrun_vs_jax import compile_record
+dims, B, S, kv = json.loads(sys.argv[1])
+print(json.dumps(compile_record("qwen3-0.6b", ("small", S, B, "train"),
+                                mesh=dims, cfg_kw={"n_kv_heads": kv})
+                 ["hlo_flops"]))
+"""
+
+_PORT_SMALL = r"""
+import dataclasses, json, math, sys
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D, specs
+dims, B, S, kv = json.loads(sys.argv[1])
+D.fake_world(math.prod(dims))
+mesh = DeviceMesh("cpu", torch.arange(math.prod(dims)).reshape(dims),
+                  mesh_dim_names=("data", "model"))
+cfg = dataclasses.replace(D.cut_depth(get_config("qwen3-0.6b"), 1),
+                          n_kv_heads=kv)
+fn, args, info = D.lower_combo(
+    "qwen3-0.6b", specs.InputShape("small", S, B, "train"),
+    cfg_override=cfg, mesh=mesh, device="cpu")
+print(json.dumps(D.analyse(fn, args, info)["counted_flops_per_rank"]))
+"""
+
+
+def _start(script, *args):
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+               JAX_PLATFORMS="cpu")
+    return subprocess.Popen([sys.executable, "-c", script, *args], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _last_json(p, timeout=120):
+    try:
+        out, err = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    assert p.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("dims, batch, kv_heads", [
+    ((4, 4), 16, 2),     # 2 KV heads: fewer than the model axis's 4 ranks
+    ((4, 16), 8, 8),     # 2 sequences a data shard, 16 model ranks
+], ids=["4x4-kv2", "4x16-b8"])
+def test_per_rank_flops_match_the_jax_compile_on_small_meshes(
+        dims, batch, kv_heads):
+    """The port's ``counted_flops_per_rank`` over the JAX package's
+    ``hlo_flops`` for the same step on as many forced host devices lies in
+    [0.85, 1.05], the band of the meshes that split evenly (the port counts
+    matmul-class ops only, so it reads a few per cent low).  The two cases
+    are the layouts that split unevenly before the dry run's rules
+    (``dtensor_layouts``) took them: a rank then did 1.38× (4×4, 2 KV
+    heads: partial sums leaking into the MLP) and 2.98× (4×16, fewer
+    sequences a data shard than model ranks: attention repeated on every
+    model rank) the reference's work."""
+    arg = json.dumps([list(dims), batch, 512, kv_heads])
+    jax_p = _start(_JAX_SMALL, arg, os.path.join(os.path.dirname(SRC),
+                                             "tools"))
+    port_p = _start(_PORT_SMALL, arg)
+    port, ref = _last_json(port_p), _last_json(jax_p)
+    assert 0.85 <= port / ref <= 1.05, (port, ref, port / ref)
+
+
+_JAX_PROD = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+from dryrun_vs_jax import compile_record
+print(json.dumps({s: compile_record("qwen3-0.6b", s, mesh="16x16",
+                                    overrides={"attn_chunk": n})
+                  for s, n in (("train_4k", 4096), ("prefill_32k", 32768))}))
+"""
+
+_PORT_PROD = r"""
+import json
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+D.fake_world(256)
+cfg = D.cut_depth(get_config("qwen3-0.6b"), 1)
+out = {}
+for s, n in (("train_4k", 4096), ("prefill_32k", 32768)):
+    rec = D.analyse(*D.lower_combo("qwen3-0.6b", s, cfg_override=cfg,
+                                   overrides={"attn_chunk": n},
+                                   device="cpu"))
+    out[s] = {k: rec[k] for k in ("counted_flops_per_rank",
+                                  "counted_batched_flops_per_rank",
+                                  "counted_flops_global")}
+print(json.dumps(out))
+"""
+
+
+def test_per_rank_flops_against_the_jax_compile_on_the_production_mesh():
+    """qwen3-0.6b at one super-block on 16×16, train_4k and prefill_32k,
+    attention in one chunk (``attn_chunk`` = the sequence, so XLA's count
+    has no loop body seen once): outside attention (the products without
+    a batch of matrices) a rank's FLOPs equal the JAX compile's dots to
+    2 %; in attention they are what the port's layout gives, a 1/256
+    share of the step's (split over the batch and every model rank),
+    against XLA's, which keeps every sequence on each device and splits
+    the heads over the 16 model ranks only — 1/16 of its score and value
+    products, 6 products of the port's backward against XLA's 5 in
+    train_4k.  The dry run departs from the reference there by design
+    (README, "The LM-scale dry run")."""
+    jax_p = _start(_JAX_PROD, os.path.join(os.path.dirname(SRC), "tools"))
+    port_p = _start(_PORT_PROD)
+    port, ref = _last_json(port_p), _last_json(jax_p)
+    for shape, share in (("train_4k", 6 / 5 / 16), ("prefill_32k", 1 / 16)):
+        p, j = port[shape], ref[shape]
+        other = p["counted_flops_per_rank"] - \
+            p["counted_batched_flops_per_rank"]
+        assert abs(other / j["other_dot_flops"] - 1) <= 0.02, (shape, p, j)
+        assert p["counted_flops_global"] == 256 * p["counted_flops_per_rank"]
+        got = p["counted_batched_flops_per_rank"] / j["batched_dot_flops"]
+        assert abs(got / share - 1) <= 1e-3, (shape, got, share)
+
+
+# ---------------------------------------------------------------------------
+# (i) the vocab-split loss and lookup
+# ---------------------------------------------------------------------------
+_VOCAB_RANKS = r"""
+import numpy as np
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch import dtensor_layouts as DL
+
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+rng = np.random.default_rng(0)
+B, S, V, D = 4, 3, 16, 8
+lg = torch.as_tensor(rng.normal(size=(B, S, V)) * 4, dtype=torch.float32)
+labels = torch.as_tensor(rng.integers(0, V, (B, S)))
+table = torch.as_tensor(rng.normal(size=(V, D)), dtype=torch.float32)
+cot = torch.as_tensor(rng.normal(size=(B, S, D)), dtype=torch.float32)
+w = torch.as_tensor(rng.normal(size=(B, S)), dtype=torch.float32)
+
+rows = [Shard(0), Replicate()]           # the batch over data
+lgd = distribute_tensor(lg, mesh, [Shard(0), Shard(2)]).requires_grad_()
+# the embedding table's layout: vocab rows over model, D over data
+tabd = distribute_tensor(table, mesh, [Shard(1), Shard(0)]).requires_grad_()
+with implicit_replication():
+    labd = distribute_tensor(labels, mesh, rows)
+    lse = DL.logsumexp(lgd)
+    gold = DL.gold_logit(lgd, labd)
+    g_lg, = torch.autograd.grad(
+        ((lse - gold) * distribute_tensor(w, mesh, rows)).sum(), [lgd])
+    emb = DL.lookup(tabd, labd)
+    g_tab, = torch.autograd.grad(
+        (emb * distribute_tensor(cot, mesh, rows)).sum(), [tabd])
+x = lg.clone().requires_grad_()
+lse0 = torch.logsumexp(x, -1)
+gold0 = torch.gather(x, -1, labels[..., None])[..., 0]
+g_lg0, = torch.autograd.grad(((lse0 - gold0) * w).sum(), [x])
+t0 = table.clone().requires_grad_()
+emb0 = t0[labels]
+g_tab0, = torch.autograd.grad((emb0 * cot).sum(), [t0])
+
+
+def err(a, b):
+    return float((a.full_tensor().detach() - b.detach()).abs().max())
+
+
+emit({"lse": err(lse, lse0), "gold": err(gold, gold0),
+      "g_lg": err(g_lg, g_lg0), "emb": err(emb, emb0),
+      "g_tab": err(g_tab, g_tab0), "table_local": list(
+          tabd.to_local().shape),
+      "g_tab_placements": str(g_tab.placements)})
+"""
+
+
+def test_split_logsumexp_and_lookup_equal_the_plain_ops(tmp_path):
+    """On 4 gloo ranks (2×2 data × model, the vocab split over the 2 model
+    ranks as the dry run splits it): ``DL.logsumexp`` and ``DL.gold_logit``
+    over a vocab-split [B, S, V], and ``DL.lookup`` in a table whose rows
+    are split, equal ``torch.logsumexp``, ``torch.gather`` and
+    ``table[ids]`` — values and gradients, float32, to 1e-6 — on every
+    rank; the table's gradient keeps the table's layout."""
+    from _torch_ranks import Ranks
+    for out in Ranks(_VOCAB_RANKS, 4, str(tmp_path)).results():
+        assert out["table_local"] == [8, 4]
+        assert out["g_tab_placements"] == "(Shard(dim=1), Shard(dim=0))"
+        for what in ("lse", "gold", "g_lg", "emb", "g_tab"):
+            assert out[what] <= 1e-6, (what, out[what])
+
+
+@pytest.mark.parametrize("fake_group", [2], indirect=True)
+def test_peak_bytes_of_a_vocab_split_logsumexp_are_the_hand_count(
+        fake_group):
+    """Rows of 64 logits split over 2 ranks: the peak a rank holds is
+    its [8, 32] ``lg - max`` and ``exp`` temporaries and the [8, 1] max —
+    no [8, 64] rows gathered whole, whose gather alone would hold as much
+    as both temporaries — and the only collectives are two all-reduces of
+    one value a row."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Shard, distribute_tensor
+    mesh = _mesh((2,), ("model",))
+    f32 = 4
+    with FakeTensorMode():
+        lg = distribute_tensor(torch.empty(8, 64), mesh, [Shard(1)])
+        for _ in range(2):
+            counter = D.StepCounter(mesh)
+            counter.exclude(lg)
+            with counter:
+                out = DL.logsumexp(lg)
+                held = counter.live_bytes
+            assert counter.peak_bytes == 2 * 8 * 32 * f32 + 8 * f32
+            assert held == 8 * f32 and out.to_local().shape == (8,)
+            assert [op.kind for op in D.collect(counter.log)] == \
+                ["all-reduce", "all-reduce"]
+
+
+@pytest.mark.parametrize("fake_group", [2], indirect=True)
+def test_step_counter_counts_no_bytes_where_none_move(fake_group):
+    """A device query (``prim.device``), a collective's result handed on
+    (``wait_tensor``, ``_wrap_tensor_autograd``), a view and a detach
+    count no bytes; an elementwise op its operand and result, an
+    all-gather its operand and result."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = _mesh((2,), ("data",))
+    f32 = 4
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(8, 16), mesh,
+                              [Shard(0)]).requires_grad_()
+        t = torch.empty(4, 8)
+        for _ in range(2):
+            counter = D.StepCounter(mesh)
+            with counter:
+                torch.ops.prim.device(t)
+                torch.ops._c10d_functional._wrap_tensor_autograd(t)
+                t.view(8, 4)
+                t.detach()
+                assert counter.bytes_local == 0
+                t + 1
+                assert counter.bytes_local == 2 * 4 * 8 * f32
+                x.redistribute(mesh, [Replicate()])
+            assert counter.bytes_local == 2 * 4 * 8 * f32 + \
+                (4 + 8) * 16 * f32
+            assert [op.kind for op in D.collect(counter.log)] == \
+                ["all-gather"]
