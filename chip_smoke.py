@@ -126,17 +126,19 @@ Phases, each of which fails the run when it fails:
    operands these runs recorded — fusion at the population cohort, B_min
    on K and K/2 rows, the population kernel at K=5000 (timed in phase 4);
 8. ``[dryrun]`` and ``[examples]``: ``python -m repro_torch.launch.dryrun
-   --device cuda`` on the fake 16x16 mesh for qwen3-0.6b train_4k and
-   decode_32k, llama4-scout-17b-a16e train_4k, gemma3-12b long_500k and
-   jamba-v0.1-52b train_4k, and on the fake 2x16x16 mesh for qwen3-0.6b
-   train_4k (one subprocess each, all started together, cut to 2
-   super-blocks; no kernel — the step runs ``impl="xla"`` on fake
-   tensors), each combo's status, counted FLOPs and bytes a rank, global
-   / per-rank FLOPs, temporary peak a rank and collective bytes printed
-   (the 2x16x16 combo's also its per-rank FLOPs over the 16x16 one's),
-   its status held to the CPU's, llama4-scout's global / per-rank FLOPs
-   to at least 200 (the MoE dispatch split over ranks) and qwen3-0.6b's
-   on 2x16x16 to at least 340;
+   --device cuda`` on the fake 16x16 mesh for qwen3-0.6b train_4k,
+   prefill_32k and decode_32k, llama4-scout-17b-a16e train_4k,
+   gemma3-12b long_500k and jamba-v0.1-52b train_4k, and on the fake
+   2x16x16 mesh for qwen3-0.6b train_4k (one subprocess each, all started
+   together; qwen3-0.6b's train and prefill steps at one super-block with
+   attention in one chunk, the others at 2 super-blocks; no kernel — the
+   step runs ``impl="xla"`` on fake tensors), each combo's status,
+   counted FLOPs and bytes a rank, global / per-rank FLOPs, temporary
+   peak a rank and collective bytes printed, its status held to the
+   CPU's; qwen3-0.6b prefill_32k's batched products and the rest a rank
+   held to the JAX compile's dots a device within 5 %, and qwen3-0.6b
+   train_4k's per-rank FLOPs 2x16x16 / 16x16 to the compile's ratio
+   within 5 % (``tests/data/dryrun_jax_dots.json``);
    meanwhile each twin of ``examples/*.py`` (``examples/torch``) runs
    here on the card at small arguments with the counters set to 0 just
    before it, and fails if a kernel of its path was not launched
@@ -377,23 +379,28 @@ TOL_GRAPH = 1e-6
 
 #: [dryrun]: the LM-scale dry run (``repro_torch.launch.dryrun``) on the
 #: fake 16x16 or 2x16x16 mesh, one subprocess a combo (the fake group
-#: stays out of this process), all started together and cut to
-#: DRYRUN_BLOCKS super-blocks; each combo must come out as it does on the
-#: CPU (README's table of statuses)
-DRYRUN_COMBOS = (("qwen3-0.6b", "train_4k", "16x16", "ok"),
-                 ("qwen3-0.6b", "decode_32k", "16x16", "ok"),
-                 ("llama4-scout-17b-a16e", "train_4k", "16x16", "ok"),
-                 ("gemma3-12b", "long_500k", "16x16", "ok"),
-                 ("jamba-v0.1-52b", "train_4k", "16x16", "ok"),
-                 ("qwen3-0.6b", "train_4k", "2x16x16", "ok"))
-#: the least global / per-rank counted FLOPs of a combo (256 / 512 is an
-#: even split of the 16x16 / 2x16x16 mesh); qwen3-0.6b's 2x16x16 train
-#: step: 256 / (0.638 x 1.15), the weakest split whose per-rank FLOPs over
-#: the 16x16 step's stay within 1.15x the JAX package's compile's ratio
-#: (0.638 at one super-block, README)
-DRYRUN_MIN_SPLIT = {("llama4-scout-17b-a16e", "train_4k", "16x16"): 200,
-                    ("qwen3-0.6b", "train_4k", "2x16x16"): 340}
-DRYRUN_BLOCKS = 2
+#: stays out of this process), all started together; each combo must come
+#: out as it does on the CPU (README's table of statuses): (arch, shape,
+#: mesh, status, super-blocks, levers), the one-block combos with
+#: attention in one chunk, as the reference's counts take it
+DRYRUN_COMBOS = (
+    ("qwen3-0.6b", "train_4k", "16x16", "ok", 1, {"attn_chunk": 4096}),
+    ("qwen3-0.6b", "train_4k", "2x16x16", "ok", 1, {"attn_chunk": 4096}),
+    ("qwen3-0.6b", "prefill_32k", "16x16", "ok", 1, {"attn_chunk": 32768}),
+    ("qwen3-0.6b", "decode_32k", "16x16", "ok", 2, None),
+    ("llama4-scout-17b-a16e", "train_4k", "16x16", "ok", 2, None),
+    ("gemma3-12b", "long_500k", "16x16", "ok", 2, None),
+    ("jamba-v0.1-52b", "train_4k", "16x16", "ok", 2, None))
+#: the JAX compile's dot FLOPs a device at one super-block and one
+#: attention chunk (tools/dryrun_vs_jax.py --write)
+DRYRUN_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                "dryrun_jax_dots.json")
+#: combos whose batched products and the rest a rank are held to the
+#: reference's within this fraction
+DRYRUN_BAND = {("qwen3-0.6b", "prefill_32k", "16x16"): 0.05}
+#: (arch, shape, fraction): the combo's per-rank FLOPs 2x16x16 / 16x16
+#: held to the reference's dots' ratio within the fraction
+DRYRUN_RATIO = ("qwen3-0.6b", "train_4k", 0.05)
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
 DRYRUN_TIMEOUT = 600
 #: [examples]: each twin of examples/*.py (examples/torch/) on the card
@@ -3601,37 +3608,68 @@ def dryrun_start():
     a combo of ``DRYRUN_COMBOS``, all together."""
     from repro_torch.launch import dryrun as D
     procs = [D.start_combo(arch, mesh, DRYRUN_DIR, shape_name=shape,
-                           blocks=DRYRUN_BLOCKS)
-             for arch, shape, mesh, _ in DRYRUN_COMBOS]
+                           blocks=blocks, overrides=levers)
+             for arch, shape, mesh, _, blocks, levers in DRYRUN_COMBOS]
     return procs, time.perf_counter()
 
 
 def dryrun_finish(started, card):
     """Wait for the dry-run processes (each is stopped before this
-    returns) and hold every record's status to the CPU's."""
+    returns), hold every record's status to the CPU's, the ``DRYRUN_BAND``
+    combos' batched products and the rest a rank to the JAX compile's
+    dots a device, and ``DRYRUN_RATIO``'s per-rank FLOPs 2x16x16 / 16x16
+    to the compile's."""
+    import json
     from repro_torch.launch import dryrun as D
+    with open(DRYRUN_REFERENCE) as f:
+        ref = json.load(f)["combos"]
     procs, t0 = started
     bad = []
     per_rank = {}
     try:
-        for (p, log), (arch, shape, mesh, want) in zip(procs, DRYRUN_COMBOS):
+        for (p, log), (arch, shape, mesh, want, blocks, levers) in zip(
+                procs, DRYRUN_COMBOS):
             p.wait(timeout=DRYRUN_TIMEOUT)
             if p.returncode:
                 with open(log) as f:
                     bad.append(f"dryrun {arch} {shape} {mesh}: exit "
                                f"{p.returncode}\n{f.read()[-3000:]}")
                 continue
-            tag = D.record_tag(arch, shape, mesh, blocks=DRYRUN_BLOCKS)
+            tag = D.record_tag(arch, shape, mesh, levers, blocks)
             rec = D.read_record(DRYRUN_DIR, tag)
             coll = rec.get("collectives", {})
             split = (rec.get("counted_flops_global", 0)
                      / max(rec.get("counted_flops_per_rank", 0), 1))
             per_rank[arch, shape, mesh] = rec.get("counted_flops_per_rank")
-            # a 2x16x16 combo: its per-rank FLOPs over the 16x16 combo's
+            # a 2x16x16 combo: its per-rank FLOPs over the 16x16 combo's,
+            # beside the JAX compile's dots'
             ratio = ""
             if mesh == "2x16x16" and per_rank.get((arch, shape, "16x16")):
-                ratio = (f"; per-rank flops 2x16x16 / 16x16 "
-                         f"{rec.get('counted_flops_per_rank', 0) / per_rank[arch, shape, '16x16']}")
+                got = (rec.get("counted_flops_per_rank", 0)
+                       / per_rank[arch, shape, "16x16"])
+                dots = [sum(ref[arch][shape][m][k] for k in (
+                    "batched_dot_flops", "other_dot_flops"))
+                    for m in ("16x16", "2x16x16")]
+                ratio = (f"; per-rank flops 2x16x16 / 16x16 {got}, the JAX "
+                         f"compile's dots' {dots[1] / dots[0]}")
+                if DRYRUN_RATIO[:2] == (arch, shape) and abs(
+                        got / (dots[1] / dots[0]) - 1) > DRYRUN_RATIO[2]:
+                    bad.append(f"dryrun {arch} {shape}: 2x16x16 / 16x16 "
+                               f"{got} against the JAX compile's "
+                               f"{dots[1] / dots[0]}")
+            band = DRYRUN_BAND.get((arch, shape, mesh))
+            if band and rec["status"] == "ok":
+                j = ref[arch][shape][mesh]
+                fb = rec["counted_batched_flops_per_rank"]
+                for what, got, want_ in (
+                        ("batched", fb, j["batched_dot_flops"]),
+                        ("other", rec["counted_flops_per_rank"] - fb,
+                         j["other_dot_flops"])):
+                    print(f"[dryrun] {tag}: {what} flops a rank {got}, the "
+                          f"JAX compile's {want_}: {got / want_}")
+                    if abs(got / want_ - 1) > band:
+                        bad.append(f"dryrun {tag}: {what} {got} against "
+                                   f"the JAX compile's {want_}")
             print(f"[dryrun] {tag}: {rec['status']} step "
                   f"{rec.get('step_s')} s; counted flops a rank "
                   f"{rec.get('counted_flops_per_rank')} (global "
@@ -3646,17 +3684,13 @@ def dryrun_finish(started, card):
             if rec["status"] != want:
                 bad.append(f"dryrun {tag}: {rec['status']} on the card, "
                            f"{want} on the CPU: {rec.get('error')}")
-            least = DRYRUN_MIN_SPLIT.get((arch, shape, mesh))
-            if least and rec["status"] == "ok" and split < least:
-                bad.append(f"dryrun {tag}: global / per-rank flops {split} "
-                           f"< {least}")
     finally:
         for p, _ in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    print(f"[dryrun] {len(procs)} combos at {DRYRUN_BLOCKS} super-blocks: "
-          f"{time.perf_counter() - t0:.3f} s, start-up included ({card})")
+    print(f"[dryrun] {len(procs)} combos: {time.perf_counter() - t0:.3f} s, "
+          f"start-up included ({card})")
     if bad:
         raise AssertionError("\n".join(bad))
 

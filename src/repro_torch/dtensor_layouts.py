@@ -13,6 +13,7 @@ imported that, so the plain paths never load it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
 from typing import Optional
@@ -34,18 +35,6 @@ def is_dtensor(x) -> bool:
     """Whether ``x`` is a DTensor."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
-
-
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose backward makes the gradient contiguous."""
-
-    @staticmethod
-    def forward(ctx, t):
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
 
 
 def constrain(x: torch.Tensor, placements) -> torch.Tensor:
@@ -89,23 +78,18 @@ def _moved_split(t: torch.Tensor, mesh_dims, dim: Optional[int],
     return pls
 
 
-def split_heads(t: torch.Tensor, n: int, dim: int = -1,
-                batch: Optional[int] = None) -> torch.Tensor:
+def split_heads(t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
     """``t`` ready to view its ``dim`` as [n, ...]: a DTensor whose
     ``dim`` is split over more ranks than divide ``n`` is replicated over
     them first (KV heads fewer than the model axis: every rank holds them
-    all, as Megatron replicates KV heads), or, given a ``batch`` dim that
-    the split still divides, split along ``batch`` instead (query heads
-    that do not divide the model axis, as llama4-scout's 40: the ranks
-    take other sequences rather than all repeat the same attention);
-    anything else as it is."""
+    all, as Megatron replicates KV heads); anything else as it is."""
     if not is_dtensor(t):
         return t
     mesh, dim = t.device_mesh, dim % t.dim()
     split = [i for i, pl in enumerate(t.placements) if pl.is_shard(dim)]
     if n % math.prod(mesh.size(i) for i in split) == 0:
         return t
-    return t.redistribute(mesh, _moved_split(t, split, batch))
+    return t.redistribute(mesh, _moved_split(t, split, None))
 
 
 def batch_split(t: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
@@ -124,39 +108,290 @@ def batch_split(t: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     return t.redistribute(t.device_mesh, pls)
 
 
-def split_groups(t: torch.Tensor) -> torch.Tensor:
-    """Attention's operand [B, G, ...] (G the KV-head groups) for the
-    chunked contraction, whose batch dims are its first two.  A DTensor
-    split along dim 0 only (``batch_split``) is viewed as [B·G, 1, ...]
-    and the merged dim split over each mesh dim, in the mesh's order,
-    where the split so far times its size still divides B·G: a mesh dim
-    that the batch cannot take (8 sequences a data shard on a 16-rank
-    model axis) splits the groups of a sequence, as XLA splits the heads
-    over it, rather than every rank of it repeating the same attention.
-    Anything else as it is."""
-    if not is_dtensor(t):
-        return t
-    t = t.reshape(t.shape[0] * t.shape[1], 1, *t.shape[2:])
-    pls = _moved_split(t, range(t.device_mesh.ndim), 0)
-    if tuple(pls) == tuple(t.placements):
-        return t
-    # the operand (a permuted view) and its returning gradient made
-    # contiguous: DTensor gives the redistributed tensor and its gradient
-    # the global strides of a permuted layout while the rank's tensor
-    # comes out of the collective contiguous, and the view of the
-    # gradient back to the projection's [.., H·hd] fails on it
-    t = t.contiguous()
-    return _ContiguousGrad.apply(t.redistribute(t.device_mesh, pls))
+# the local work ``attend`` and ``by_heads`` run on each rank: how many
+# distinct shares of
+# it the ranks run together (``share``: a rank's FLOPs times it are the
+# unsharded op's), and the slice of the hd dim on which ``head_product``
+# takes its second operand's gradient (``slices``: count, this rank's
+# slice, whether this rank's copy of it counts)
+_LOCAL = [None]
 
 
-def join_groups(t: torch.Tensor, batch: int) -> torch.Tensor:
-    """``split_groups`` undone: a DTensor [B·G, 1, ...] brought to a split
-    the batch ``B`` alone takes (``batch_split``) and viewed as
-    [B, G, ...]; anything else as it is."""
-    if not is_dtensor(t):
-        return t
-    t = batch_split(t, batch)
-    return t.reshape(batch, t.shape[0] // batch, *t.shape[2:])
+def local_share() -> Optional[int]:
+    """How many distinct shares of the local work running now the ranks
+    run together, or None outside ``attend``'s and ``by_heads``' local
+    work (the dry run's counter multiplies a local op's FLOPs by it for
+    the unsharded count)."""
+    return _LOCAL[0]["share"] if _LOCAL[0] else None
+
+
+@contextlib.contextmanager
+def _local(region):
+    old, _LOCAL[0] = _LOCAL[0], region
+    try:
+        yield
+    finally:
+        _LOCAL[0] = old
+
+
+class _LocalRun(torch.autograd.Function):
+    """``fn`` on a rank's local tensors inside a ``_local`` region, its
+    backward too: the forward keeps the graph it builds (nothing is
+    recomputed) and the backward runs it in the same region."""
+
+    @staticmethod
+    def forward(ctx, fn, region, *ins):
+        leaves = [t.detach().requires_grad_(t.requires_grad) for t in ins]
+        with torch.enable_grad(), _local(region):
+            out = fn(*leaves)
+        ctx.region, ctx.leaves, ctx.out = region, leaves, out
+        return out.detach().contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        want = [t for t in ctx.leaves if t.requires_grad]
+        with _local(ctx.region):
+            got = iter(torch.autograd.grad(ctx.out, want, g))
+        ctx.out = None
+        # contiguous, as the forward's result: the DTensor a local tensor
+        # returns to takes its strides as the global ones, and one in the
+        # permuted layout of the heads' products would then fail the view
+        # to (or back to) the projection's [.., H·hd]
+        return (None, None, *(next(got).contiguous() if t.requires_grad
+                              else None for t in ctx.leaves))
+
+
+class _Product(torch.autograd.Function):
+    """``torch.einsum(eq, a, b)`` inside the local work, each product
+    counted at its own share: the forward and ``a``'s gradient at
+    ``share``, ``b``'s gradient taken on one of ``n`` slices of ``b``'s
+    last dim (``part``; zeros elsewhere, and nothing where this rank's
+    copy of the slice does not count, ``keep``) at ``share · n``.  ``eq``
+    has two operands and no index that only one of the three tensors
+    carries."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b, n, part, keep, share):
+        ctx.save_for_backward(a, b)
+        ctx.eq, ctx.slice, ctx.share = eq, (n, part, keep), share
+        with _local(dict(_LOCAL[0], share=share)):
+            return torch.einsum(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        (ia, ib), io = ctx.eq.split("->")[0].split(","), ctx.eq.split("->")[1]
+        n, part, keep = ctx.slice
+        da = db = None
+        if ctx.needs_input_grad[1]:
+            with _local(dict(_LOCAL[0], share=ctx.share)):
+                da = torch.einsum(f"{io},{ib}->{ia}", g, b)
+        if ctx.needs_input_grad[2]:
+            h, size = ib[-1], b.shape[-1] // n
+            sa = a.narrow(ia.index(h), part * size, size) if h in ia else a
+            sg = g.narrow(io.index(h), part * size, size) if h in io else g
+            with _local(dict(_LOCAL[0], share=ctx.share * n)):
+                got = torch.einsum(f"{ia},{io}->{ib}", sa, sg)
+            if n == 1:
+                db = got
+            else:
+                db = b.new_zeros(b.shape)
+                if keep:
+                    db.narrow(-1, part * size, size).copy_(got)
+        return None, da, db, None, None, None, None
+
+
+def head_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)``: attention's score or value product, b
+    the keys or values [.., hd].  Inside ``attend``'s local work on a rank
+    whose layout splits the k/v gradients (``slices``), b's gradient comes
+    on this rank's hd slice only (``_Product``), as XLA partitions them;
+    anything else the plain einsum."""
+    region = _LOCAL[0]
+    if region is None or region["slices"] is None:
+        return torch.einsum(eq, a, b)
+    return _Product.apply(eq, a, b, *region["slices"], region["share"])
+
+
+def shared_product(eq: str, a: torch.Tensor, b: torch.Tensor
+                   ) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of operands without the heads' dim (the
+    SSD scan's C·Bᵀ): inside ``by_heads``' local work every rank computes
+    it whole, as XLA's does, and it counts once for the unsharded op
+    (``_Product`` at share 1); anything else the plain einsum."""
+    if _LOCAL[0] is None:
+        return torch.einsum(eq, a, b)
+    return _Product.apply(eq, a, b, 1, 0, True, 1)
+
+
+def by_heads(fn, parts, *, out_dim: int, heads):
+    """``fn(*tensors)`` of ``parts`` ((tensor, its heads' dim or None),
+    dim 0 the batch), a tensor whose ``out_dim`` is the heads': the SSD
+    scan.  On DTensors each rank runs ``fn`` on its own heads, laid out as
+    the JAX package's compile lays the scan out: every sequence of the
+    batch on each rank (gathered over the mesh dims that do not split the
+    heads), the heads split over ``heads`` (the mesh dims that split the
+    projection weights' output features, ``feature_dims``) where they
+    divide, the tensors without a heads' dim whole on every rank.  The
+    result returns to the first tensor's layout; the gradients of the
+    tensors without heads come back as partial sums.  Anything else:
+    ``fn(*tensors)``."""
+    ts = [t for t, _ in parts]
+    if not any(is_dtensor(t) for t in ts):
+        return fn(*ts)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    first = ts[0]
+    mesh = first.device_mesh
+    M = math.prod(mesh.size(i) for i in heads)
+    if any(d is not None and t.shape[d] % M for t, d in parts):
+        heads, M = [], 1
+    local = []
+    for t, d in parts:
+        if not is_dtensor(t):
+            local.append(t)
+            continue
+        pls = [Replicate()] * mesh.ndim
+        gpls = list(pls)
+        for i in heads:
+            pls[i] = Replicate() if d is None else Shard(d % t.dim())
+            gpls[i] = Partial() if d is None else pls[i]
+        local.append(t.redistribute(mesh, pls).to_local(grad_placements=gpls))
+    o = _LocalRun.apply(fn, {"share": M, "slices": None}, *local)
+    pls = [Replicate()] * mesh.ndim
+    for i in heads:
+        pls[i] = Shard(out_dim)
+    shape = list(o.shape)
+    shape[out_dim] *= M
+    out = DTensor.from_local(o, mesh, pls, run_check=False,
+                             shape=tuple(shape),
+                             stride=_contiguous_stride(shape))
+    return out.redistribute(mesh, first.placements)
+
+
+def attend(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           heads, keep_batch: bool = False) -> torch.Tensor:
+    """``fn(q, k, v)``, attention: q [B, Sq, H, hd], k/v [B, Sk, KV, hd]
+    (KV dividing H) to o [B, Sq, H, hd], laid out as q.
+
+    On DTensors each rank runs ``fn`` on its own block, laid out as the
+    JAX package's compile lays attention out.  The heads split over the
+    mesh dims ``heads`` (those that split the projection weights' output
+    features, ``feature_dims``), M ranks:
+    the KV-head groups over gcd(KV, M) of them, then the query heads of a
+    group over gcd(H/KV, the rest), then the batch over what is left where
+    it divides (a head count no split divides, as llama4-scout's 40 over
+    16, or fewer heads than ranks).  Every other mesh dim holds every
+    sequence of the batch (gathered), as XLA's token stream does, or with
+    ``keep_batch`` keeps the split q's batch arrives with, as XLA keeps
+    the split of an input's embeddings (an encoder over them, and a
+    cross-attention over its output).  Where the query heads of a group
+    are split r > 1 ways and the gathered dims hold a multiple of r ranks,
+    the k and v gradients (``head_product``) are taken on an hd slice,
+    1/r of hd a rank, the slice chosen by the rank's place on the gathered
+    dims, as XLA splits them.  The result returns to q's layout; the
+    gradients come back as partial sums over the ranks that share a
+    tensor.  Anything else: ``fn(q, k, v)``."""
+    if not any(is_dtensor(t) for t in (q, k, v)):
+        return fn(q, k, v)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    R = H // KV
+    hdims = list(heads)
+    bdims = [i for i in range(mesh.ndim) if i not in hdims]
+    if keep_batch:       # the batch keeps the split of q's batch dims
+        bdims = [i for i in bdims if q.placements[i].is_shard(0)]
+    M = math.prod(mesh.size(i) for i in hdims)
+    across = math.prod(mesh.size(i) for i in bdims)
+    # ranks splitting the batch, and ranks holding the same batch
+    split, copies = (across, 1) if keep_batch else (1, across)
+    batch = B // split
+    g = math.gcd(KV, M)
+    r = math.gcd(R, M // g)
+    b = math.gcd(batch, M // (g * r))
+    rest = M // (g * r * b)              # ranks repeating one block
+    gi, ri, bi = _block_index(_shard_index(mesh, hdims), (g, r, b, rest))
+    aligned = b * rest == 1 and H % M == 0 and (KV == g or r == 1)
+    kv_split = KV % M == 0
+    c = _shard_index(mesh, bdims)
+    n = r if r > 1 and copies % r == 0 and hd % r == 0 else 1
+    on_batch = Shard(0) if keep_batch else Replicate()
+
+    def local(t, split, grad):
+        pls = [Replicate()] * mesh.ndim
+        for i in bdims:
+            pls[i] = on_batch
+        for i in hdims:
+            pls[i] = Shard(2) if split else Replicate()
+        gpls = list(pls)
+        for i in hdims:
+            gpls[i] = Shard(2) if split else Partial()
+        for i in bdims:
+            gpls[i] = grad
+        return t.redistribute(mesh, pls).to_local(grad_placements=gpls)
+
+    ql = local(q, aligned, on_batch)
+    kl, vl = (local(t, kv_split, Partial() if n > 1 else on_batch)
+              for t in (k, v))
+    if not aligned:
+        ql = ql.reshape(batch, Sq, KV, R, hd)
+        ql = ql.narrow(2, gi * (KV // g), KV // g).narrow(
+            3, ri * (R // r), R // r).reshape(batch, Sq, -1, hd)
+        if not kv_split:
+            kl, vl = (t.narrow(2, gi * (KV // g), KV // g) for t in (kl, vl))
+        ql, kl, vl = (t.narrow(0, bi * (batch // b), batch // b)
+                      for t in (ql, kl, vl))
+    elif not kv_split:
+        first = _shard_index(mesh, hdims) * (H // M) // R
+        kl, vl = (t.narrow(2, first, max(H // M // R, 1))
+                  for t in (kl, vl))
+    region = {"share": g * r * b * split,
+              "slices": (n, c % n, c < n) if n > 1 else None}
+    o = _LocalRun.apply(fn, region, ql, kl, vl)
+    pls = [Replicate()] * mesh.ndim
+    for i in bdims:
+        pls[i] = on_batch
+    if aligned:
+        for i in hdims:
+            pls[i] = Shard(2)
+        out = DTensor.from_local(o, mesh, pls, run_check=False,
+                                 shape=q.shape,
+                                 stride=_contiguous_stride(q.shape))
+        return out.redistribute(mesh, q.placements)
+    # every rank's block gathered over the head dims and put in place
+    on = [Shard(1) if pl.is_shard() else pl for pl in pls]
+    for i in hdims:
+        on[i] = Shard(0)
+    shape = (M, o.shape[0] * split, *o.shape[1:])
+    blocks = DTensor.from_local(o[None], mesh, on, run_check=False,
+                                shape=shape, stride=_contiguous_stride(shape))
+    blocks = blocks.redistribute(mesh, [Replicate() if i in hdims else pl
+                                        for i, pl in enumerate(on)])
+    blocks = blocks.to_local().reshape(g, r, b, rest, batch // b, Sq,
+                                       KV // g, R // r, hd)[:, :, :, 0]
+    mine = blocks.permute(2, 3, 4, 0, 5, 1, 6, 7).reshape(
+        batch, Sq, H, hd).contiguous()
+    out = DTensor.from_local(mine, mesh, pls, run_check=False,
+                             shape=q.shape,
+                             stride=_contiguous_stride(q.shape))
+    return out.redistribute(mesh, q.placements)
+
+
+def _block_index(m: int, sizes) -> tuple:
+    """The (KV-group block, query-head block, batch block) of the rank
+    ``m``-th along the head-splitting mesh dims, ``sizes`` the counts of
+    each and of the ranks repeating a block (row-major)."""
+    g, r, b, rest = sizes
+    return m // (r * b * rest), m // (b * rest) % r, m // rest % b
+
+def feature_dims(w: torch.Tensor):
+    """The mesh dims that split a DTensor weight's last dim (a
+    projection's output features: tensor parallelism's dims); None for
+    anything else."""
+    if not is_dtensor(w):
+        return None
+    return [i for i, pl in enumerate(w.placements) if pl.is_shard(w.dim() - 1)]
 
 
 def fsdp_gather(w: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
@@ -193,11 +428,70 @@ def matmul_operands(x: torch.Tensor, w: torch.Tensor):
     x = constrain(x, [Shard(x.dim() - 1) if px.is_replicate()
                       and pw.is_shard(w.dim() - 2) else px
                       for px, pw in zip(x.placements, w.placements)])
-    both = [i for i, (px, pw) in enumerate(zip(x.placements, w.placements))
-            if px.is_replicate() and pw.is_replicate()]
-    if both:
-        w = constrain(w, _moved_split(w, both, -1))
     return x, w
+
+
+class _WholeInputGrad(torch.autograd.Function):
+    """``x @ w`` (``matmul_operands``' layouts) whose backward takes x's
+    gradient over the whole d_in on every rank of the mesh dims ``keep``
+    leaves whole: the output's gradient split along dim 0 over the mesh
+    dims that split w's d_in, whole over the rest, against the whole
+    weight.  w's gradient is the plain product's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xl, wl = (t.detach().requires_grad_(t.requires_grad) for t in (x, w))
+        with torch.enable_grad():
+            y = torch.matmul(*matmul_operands(xl, wl))
+        ctx.graph, ctx.pls = (y, wl), x.placements
+        ctx.save_for_backward(w)
+        return y.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,), (y, wl) = ctx.saved_tensors, ctx.graph
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw, = torch.autograd.grad(y, [wl], g, retain_graph=True)
+        ctx.graph = None
+        from torch.distributed.tensor import Replicate
+        mesh = w.device_mesh
+        rows = [i for i, pl in enumerate(w.placements)
+                if pl.is_shard(w.dim() - 2)]
+        pls = _moved_split(g, rows, 0)
+        for i in range(mesh.ndim):
+            if i not in rows:
+                pls[i] = Replicate()
+        whole = w.redistribute(mesh, [Replicate()] * mesh.ndim)
+        dx = torch.matmul(g.redistribute(mesh, pls),
+                          whole.transpose(-1, -2).to(g.dtype))
+        return dx.redistribute(mesh, ctx.pls), dw
+
+
+def unsplit_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (w [d_in, d_out]).  On DTensors whose weight no mesh dim
+    splits along d_out (no model split divides it, so the JAX package's
+    ``sanitize_pspec`` leaves it whole: whisper-base's 51865 and
+    mamba2-370m's 50280-word vocab) while some mesh dim splits neither of
+    its dims, the product runs as XLA partitions it: ``matmul_operands``'
+    layouts, so no model rank takes an uneven slice of d_out, the forward
+    and w's gradient split as x's rows are; x's gradient runs over the
+    whole d_in, the output's gradient split over the mesh dims that split
+    w's d_in only, on every rank of the others
+    (``_WholeInputGrad``).  x's rows are split further over the mesh
+    dims that split neither of w's dims, where its dim 0 divides (as
+    ``dense`` scatters a partial sum); where it does not, those ranks
+    repeat the product, as XLA's do.  Anything else: ``x @ w``."""
+    if not is_dtensor(x) or not is_dtensor(w):
+        return x @ w
+    last = w.dim() - 1
+    if any(pl.is_shard(last) for pl in w.placements) or all(
+            pl.is_shard(last - 1) for pl in w.placements):
+        return x @ w
+    dims = [i for i, (px, pw) in enumerate(zip(x.placements, w.placements))
+            if px.is_shard(0) or pw.is_replicate()]
+    x = constrain(x, _moved_split(x, dims, 0))
+    return _WholeInputGrad.apply(x, w)
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

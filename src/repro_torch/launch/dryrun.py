@@ -24,11 +24,14 @@ sees the ops below DTensor, counts them:
 
 * ``counted_flops_per_rank``: rank 0's local matmul-class ops, forward
   and backward, by ``torch.utils.flop_counter``'s formulas;
-* ``counted_batched_flops_per_rank``: the part of it in products of a
-  batch of more than one matrix (attention's score and value products,
-  the experts' GEMMs), the JAX compile's dots with batch dimensions;
+* ``counted_batched_flops_per_rank``: the part of it in the rank's
+  products of a batch of more than one matrix (attention's score and
+  value products, the SSD scan's), the JAX compile's dots with batch
+  dimensions on the device;
 * ``counted_flops_global``: the same formulas on the DTensor ops, i.e. on
-  the unsharded shapes;
+  the unsharded shapes; the local work ``dtensor_layouts.attend`` and
+  ``by_heads`` run on each rank at a rank's FLOPs times the distinct
+  shares the ranks run (``dtensor_layouts.local_share``);
 * ``counted_bytes_per_rank``: operand plus result bytes of every local op
   that moves bytes — not a view, an alias, a device query or a
   collective's result handed on (XLA's "bytes accessed", without XLA's
@@ -70,6 +73,7 @@ from torch.utils._pytree import tree_map as pt_map
 from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
+from .. import dtensor_layouts as DL
 from ..configs import ARCHS, get_config
 from ..core.trees import tree_leaves, tree_map
 from ..device import resolve_device
@@ -152,9 +156,9 @@ _SAME_RESULT = {getattr(torch.ops._c10d_functional, name)
                 for name in ("wait_tensor", "_wrap_tensor_autograd")
                 if hasattr(torch.ops._c10d_functional, name)}
 
-# products of a batch of matrices: with a batch > 1, attention's score and
-# value products and the experts' GEMMs (a projection's batch is its
-# one client)
+# products of a batch of matrices: with a batch > 1 on the rank,
+# attention's score and value products (a projection's batch is its one
+# client, an expert GEMM's the rank's one expert)
 _BATCHED = {torch.ops.aten.bmm, torch.ops.aten.baddbmm}
 
 # ops that read and write no tensor's bytes
@@ -200,7 +204,6 @@ class StepCounter(CommDebugMode):
         super().__init__()
         self.flops_local = 0
         self.flops_batched = 0
-        self._batched_op = None
         self.flops_global = 0
         self.bytes_local = 0
         self.live_bytes = 0
@@ -264,11 +267,6 @@ class StepCounter(CommDebugMode):
                 margs, mkw = _meta_like((args, kwargs))
                 self.flops_global += _flops(func, args, kwargs,
                                             func(*margs, **mkw))
-            # a product of a batch of matrices, judged on the global
-            # shapes (a rank's share of the batch may be one matrix)
-            batched = func._overloadpacket in _BATCHED and \
-                args[0].shape[0] > 1
-            self._batched_op = func if batched else None
             return super().__torch_dispatch__(func, types, args, kwargs)
         out = super().__torch_dispatch__(func, types, args, kwargs)
         if _in_sharding_propagation():
@@ -280,9 +278,13 @@ class StepCounter(CommDebugMode):
             self._made(out)
         flops = _flops(func, args, kwargs, out)
         self.flops_local += flops
-        if func is self._batched_op:
+        # a product of a batch of matrices, judged on the rank's shapes as
+        # the JAX tool judges the partitioned program's dots
+        if pk in _BATCHED and args[0].shape[0] > 1:
             self.flops_batched += flops
-            self._batched_op = None
+        share = DL.local_share()
+        if share:       # ``attend``'s local work: no DTensor op counted it
+            self.flops_global += flops * share
         if pk in self.comm_registry:
             axis, g = self._group(args)
             self.log.append((pk.__name__, _tensor_bytes(out), g, axis))

@@ -52,7 +52,9 @@ def cross_attention_fwd(p, x, src, cfg: ModelConfig, *, chunk: int = 1024):
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     o = L.chunked_attention(q.reshape(K * B, Sq, H, hd),
                             k.reshape(K * B, Sk, KH, hd), v, window=None,
-                            chunk=min(chunk, Sq), causal=False)
+                            chunk=min(chunk, Sq), causal=False,
+                            heads=DL.feature_dims(p["wq"]["w"]),
+                            keep_batch=True)
     return L.dense(p["wo"], DL.pin(o.reshape(K, B, Sq, H * hd)))
 
 
@@ -125,7 +127,9 @@ def encode(params, src_embeds, cfg: ModelConfig, *, attn_chunk: int = 1024):
         a = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
         q, k, v = L._project_qkv(bp["attn"], a, cfg, pos)
         a = L.chunked_attention(q, k, v, window=None,
-                                chunk=min(attn_chunk, S), causal=False)
+                                chunk=min(attn_chunk, S), causal=False,
+                                heads=DL.feature_dims(bp["attn"]["wq"]["w"]),
+                                keep_batch=True)
         h = h + L.dense(bp["attn"]["wo"],
                         DL.pin(a.reshape(1, B, S, cfg.n_heads * cfg.hd)))
         h = h + L.mlp(bp["mlp"], L.rms_norm(h, bp["norm2"], cfg.norm_eps))
@@ -155,7 +159,14 @@ def decode_fwd(params, tokens, enc_out, cfg: ModelConfig, *,
         h = h + cross_attention_fwd(bp["cross_attn"], c, src, cfg,
                                     chunk=attn_chunk)
         h = h + L.mlp(bp["mlp"], L.rms_norm(h, bp["norm2"], cfg.norm_eps))
-    return _norm(h, params["dec_norm"], cfg)[0] @ params["lm_head"]
+    return _logits(params, _norm(h, params["dec_norm"], cfg)[0])
+
+
+def _logits(params, h):
+    """h [.., D] @ lm_head [D, V], partitioned as XLA partitions a product
+    whose 51865-word vocab no model split divides
+    (``dtensor_layouts.unsplit_matmul``)."""
+    return DL.unsplit_matmul(h, params["lm_head"])
 
 
 def audio_head_logits(params, enc_out):
@@ -228,8 +239,8 @@ def prefill_with_cache(params, tokens, enc_out, cache, cfg: ModelConfig, *,
         h = h + cross_attention_fwd(bp["cross_attn"], c, src, cfg,
                                     chunk=attn_chunk)
         h = h + L.mlp(bp["mlp"], L.rms_norm(h, bp["norm2"], cfg.norm_eps))
-    h = _norm(h[:, :, -1], params["dec_norm"], cfg)[0]
-    return h @ params["lm_head"], cache
+    return _logits(params, _norm(h[:, :, -1], params["dec_norm"], cfg)[0]), \
+        cache
 
 
 @torch.no_grad()
@@ -263,5 +274,4 @@ def decode_step(params, cache, token, index, cfg: ModelConfig):
         o = o.permute(0, 3, 1, 2, 4).reshape(1, B, 1, H * hd)
         h = h + L.dense(bp["cross_attn"]["wo"], o)
         h = h + L.mlp(bp["mlp"], L.rms_norm(h, bp["norm2"], cfg.norm_eps))
-    h = _norm(h, params["dec_norm"], cfg)[0]
-    return h @ params["lm_head"], cache
+    return _logits(params, _norm(h, params["dec_norm"], cfg)[0]), cache

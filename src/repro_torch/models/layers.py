@@ -23,6 +23,7 @@ slots S decode steps would have written.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -153,7 +154,7 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     """x [K, B, S, D] -> q [K·B, S, H, hd], k/v [K·B, S, KH, hd]."""
     K, B, S, _ = x.shape
     hd, H, KH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = DL.split_heads(dense(p["wq"], x), H, batch=1).reshape(K, B, S, H, hd)
+    q = DL.split_heads(dense(p["wq"], x), H).reshape(K, B, S, H, hd)
     k = DL.split_heads(dense(p["wk"], x), KH).reshape(K, B, S, KH, hd)
     v = DL.split_heads(dense(p["wv"], x), KH).reshape(K, B, S, KH, hd)
     if cfg.qk_norm:
@@ -172,24 +173,32 @@ def _attn_chunk(q, k, v, mask, scale):
     """q: [B,G,R,Cq,hd]  k/v: [B,G,Sk,hd]  mask: [Cq,Sk] -> [B,G,R,Cq,hd].
 
     G = kv head groups, R = q heads per kv head.  f32 softmax."""
-    s = torch.einsum("bgrqh,bgkh->bgrqk", q, k).float() * scale
+    s = DL.head_product("bgrqh,bgkh->bgrqk", q, k).float() * scale
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     z = e.sum(dim=-1, keepdim=True)
-    return torch.einsum("bgrqk,bgkh->bgrqh",
-                        (e / torch.clamp_min(z, 1e-30)).to(v.dtype), v)
+    return DL.head_product("bgrqk,bgkh->bgrqh",
+                           (e / torch.clamp_min(z, 1e-30)).to(v.dtype), v)
 
 
 def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024,
-                      causal: bool = True):
+                      causal: bool = True, heads=None,
+                      keep_batch: bool = False):
     """Causal (optionally sliding-window) attention, queries and keys at
     the same positions; ``causal=False`` (no window) lets every query see
     every key, as the Whisper encoder and the cross-attention do.
 
-    q: [B, Sq, H, hd], k/v: [B, Sk, KH, hd].  Returns [B, Sq, H, hd]."""
-    # a DTensor's contractions below see operands split along the batch
-    q, k, v = (DL.batch_split(t) for t in (q, k, v))
+    q: [B, Sq, H, hd], k/v: [B, Sk, KH, hd].  Returns [B, Sq, H, hd].
+    DTensors run on each rank's block (``dtensor_layouts.attend``, which
+    takes ``heads`` and ``keep_batch``)."""
+    return DL.attend(functools.partial(_chunked_attention, window=window,
+                                       chunk=chunk, causal=causal), q, k, v,
+                     heads=heads, keep_batch=keep_batch)
+
+
+def _chunked_attention(q, k, v, *, window: Optional[int], chunk: int,
+                       causal: bool):
     B, Sq, H, hd = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     R = H // KH
@@ -199,10 +208,9 @@ def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024,
         chunk //= 2
     dev = q.device
 
-    # [B,KH,R,Sq,hd] and [B,KH,Sk,hd]; a DTensor's [B·KH,1,...]
-    qg = DL.split_groups(q.reshape(B, Sq, KH, R, hd).permute(0, 2, 3, 1, 4))
-    kg = DL.split_groups(k.permute(0, 2, 1, 3))
-    vg = DL.split_groups(v.permute(0, 2, 1, 3))
+    qg = q.reshape(B, Sq, KH, R, hd).permute(0, 2, 3, 1, 4)    # [B,KH,R,Sq,hd]
+    kg = k.permute(0, 2, 1, 3)                                 # [B,KH,Sk,hd]
+    vg = v.permute(0, 2, 1, 3)
     outs = []
     if window is None:
         # causal: each q chunk sees keys [0, t0 + chunk); bidirectional:
@@ -229,7 +237,7 @@ def chunked_attention(q, k, v, *, window: Optional[int], chunk: int = 1024,
             outs.append(_attn_chunk(qg[:, :, :, t0:t0 + chunk],
                                     kp[:, :, t0:t0 + span],
                                     vp[:, :, t0:t0 + span], mask, scale))
-    out = DL.join_groups(torch.cat(outs, dim=3), B)            # [B,KH,R,Sq,hd]
+    out = torch.cat(outs, dim=3)                               # [B,KH,R,Sq,hd]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
@@ -275,7 +283,8 @@ def attention_prefill(p, x, cfg: ModelConfig, *, window: Optional[int],
     if impl == "pallas":
         o = pallas_attention(q, k, v, window, min(chunk, S))
     else:
-        o = chunked_attention(q, k, v, window=window, chunk=min(chunk, S))
+        o = chunked_attention(q, k, v, window=window, chunk=min(chunk, S),
+                              heads=DL.feature_dims(p["wq"]["w"]))
     o = DL.pin(o.reshape(K, B, S, cfg.n_heads * cfg.hd))
     return dense(p["wo"], o), k, v
 

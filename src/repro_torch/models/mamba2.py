@@ -19,6 +19,7 @@ inputs and the SSM state [K·B, nh, N, hp] — written in place;
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -74,8 +75,10 @@ def _causal_conv(x, w, b=None):
     return F.silu(out)
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
-    """Chunked SSD, the plain path.
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False,
+                heads=None):
+    """Chunked SSD, the plain path; DTensors run on each rank's heads
+    (``dtensor_layouts.by_heads``, which takes ``heads``).
 
     x:  [B, S, nh, hp]   (conv'd + silu'd input)
     dt: [B, S, nh]       (post-softplus step sizes, fp32)
@@ -86,11 +89,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     recurrence's last carry, the state S sequential ``mamba_decode`` steps
     reach (the prefill's cache export).
     """
-    # as in ``chunked_attention``: a DTensor's chunk contractions see
-    # operands split along the batch only
-    x, dt, Bm, Cm = (DL.batch_split(t) for t in (x, dt, Bm, Cm))
-    if A.dim() == 2:
-        A = DL.batch_split(A)
+    return DL.by_heads(
+        functools.partial(_ssd_chunked, chunk=chunk,
+                          return_state=return_state),
+        [(x, 2), (dt, 2), (A, -1), (Bm, None), (Cm, None)], out_dim=2,
+        heads=heads)
+
+
+def _ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, return_state: bool):
     Bsz, S, nh, hp = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -114,7 +120,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     tri = torch.ones((Q, Q), dtype=torch.bool,
                      device=x.device).tril()[None, None, :, :, None]
     Lmat = torch.exp(torch.where(tri, diff, -torch.inf))
-    scores = torch.einsum("bctn,bcsn->bcts", Cc, Bc)              # [B,nc,Q,Q]
+    scores = DL.shared_product("bctn,bcsn->bcts", Cc, Bc)         # [B,nc,Q,Q]
     y_diag = torch.einsum("bctsh,bcts,bcshp->bcthp", Lmat, scores, xc)
 
     # --- chunk summary states: S_c = Σ_s exp(cum_last − cum_s) B_s x_s^T ---
@@ -133,7 +139,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     # --- inter-chunk contribution: y_off[t] = C_t · (exp(cum_t) * h_prev) ---
     in_decay = torch.exp(cum)                                     # [B,nc,Q,nh]
     y_off = torch.einsum("bctn,bcth,bchnp->bcthp", Cc, in_decay, h_prev)
-    y = DL.pin((y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype))
+    y = (y_diag + y_off).reshape(Bsz, S, nh, hp).to(x.dtype)
     return (y, h) if return_state else y
 
 
@@ -176,9 +182,10 @@ def mamba_fwd(p, u, cfg: ModelConfig, *, impl: str = "xla"):
     A = -torch.exp(p["A_log"])                                    # [K, nh]
     xh = x.reshape(K * B, S, nh, hp)
     ssd = ssd_pallas if impl == "pallas" else ssd_chunked
+    kw = {} if impl == "pallas" else {"heads": DL.feature_dims(p["wx"])}
     y = ssd(xh, dt.reshape(K * B, S, nh), A.repeat_interleave(B, dim=0),
             Bm.reshape(K * B, S, -1), Cm.reshape(K * B, S, -1),
-            cfg.ssm_chunk)
+            cfg.ssm_chunk, **kw)
     y = (y + xh * p["D"].repeat_interleave(B, dim=0)[:, None, :, None]
          .to(x.dtype))
     y = y.reshape(K, B, S, cfg.d_inner)

@@ -224,7 +224,7 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
 
 def unembed(params, h, cfg: ModelConfig):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+    return DL.unsplit_matmul(h, w)
 
 
 def lm_hidden(params, x, cfg: ModelConfig, **bk):

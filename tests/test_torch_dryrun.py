@@ -27,8 +27,12 @@ dryrun}``) against the JAX package's.
   small meshes where the port once split unevenly: 2 KV heads on a 4×4
   mesh, and 2 sequences a data shard on a 16-rank model axis (the
   2×16×16 train steps' case), each side in a subprocess; and on the
-  16×16 production mesh outside attention, with attention's departure
-  (XLA splits it over the model axis only) held to its measured share;
+  production meshes, one super-block with attention in one chunk, the
+  batched products and the rest a rank against the compile's dots a
+  device: qwen3-0.6b against a live compile (which equals
+  ``tests/data/dryrun_jax_dots.json``), six combos against that file;
+* the head-split layouts (``attend``, ``by_heads``, ``unsplit_matmul``)
+  on 4 gloo ranks against the plain path, values and gradients;
 * the vocab-split log-sum-exp, gold logit and masked embedding lookup on
   4 gloo ranks against the plain ops, values and gradients; the
   log-sum-exp's peak on 2 fake ranks against a hand count (no [.., V]
@@ -369,15 +373,17 @@ import json, sys
 from repro_torch.launch import dryrun as D
 D.fake_world(256)
 out = {}
-for arch, shape in (("gemma3-12b", "long_500k"),
-                    ("jamba-v0.1-52b", "long_500k"),
-                    ("jamba-v0.1-52b", "train_4k"),
-                    ("llama4-scout-17b-a16e", "train_4k")):
+for arch, shape, levers in (("gemma3-12b", "long_500k", None),
+                            ("jamba-v0.1-52b", "long_500k", None),
+                            ("jamba-v0.1-52b", "train_4k", None),
+                            ("llama4-scout-17b-a16e", "train_4k",
+                             {"attn_chunk": 4096})):
     rec = D.run_one(arch, shape, False, force=True, out_dir=sys.argv[1],
-                    device="cpu", blocks=1)
+                    device="cpu", blocks=1, overrides=levers)
     out[f"{arch} {shape}"] = {k: rec.get(k) for k in (
         "status", "error", "counted_flops_per_rank", "counted_flops_global",
-        "counted_peak_bytes_per_rank", "argument_size_in_bytes")}
+        "counted_batched_flops_per_rank", "counted_peak_bytes_per_rank",
+        "argument_size_in_bytes")}
 print(json.dumps(out))
 """
 
@@ -386,17 +392,19 @@ def test_repaired_combos_on_the_production_mesh(tmp_path):
     """The decode step against a cache whose sequence the data and model
     axes split at once (long_500k, B=1), Jamba's training step, and the
     MoE dispatch split over ranks: each comes out ``ok`` with a per-rank
-    peak; llama4-scout's rank does at most 1/200 of the step's FLOPs
-    (global / per-rank >= 200; 256 is an even split)."""
+    peak; llama4-scout's train step (attention in one chunk: 40 query
+    heads over 8 groups of 2 model ranks, each pair splitting its batch;
+    the experts over ``model`` on every group) does a rank's work of the
+    JAX compile's to 10 %, its batched products and the rest apart
+    (``tests/data/dryrun_jax_dots.json``)."""
     out = json.loads(_run(_REPAIRED, str(tmp_path)).stdout.strip()
                      .splitlines()[-1])
     for name, rec in out.items():
         assert rec["status"] == "ok", (name, rec["error"])
         assert rec["counted_peak_bytes_per_rank"] > 0, name
         assert 0 < rec["counted_flops_per_rank"] < rec["counted_flops_global"]
-    scout = out["llama4-scout-17b-a16e train_4k"]
-    assert scout["counted_flops_global"] / scout["counted_flops_per_rank"] \
-        >= 200
+    _hold(out["llama4-scout-17b-a16e train_4k"],
+          _reference()["llama4-scout-17b-a16e"]["train_4k"]["16x16"], 0.10)
 
 
 _MOE_RANKS = r"""
@@ -693,30 +701,202 @@ for s, n in (("train_4k", 4096), ("prefill_32k", 32768)):
 print(json.dumps(out))
 """
 
+# the JAX compile's dot FLOPs a device, written by ``tools/dryrun_vs_jax.py
+# --write`` (one super-block, one attention chunk)
+REFERENCE = os.path.join(os.path.dirname(__file__), "data",
+                         "dryrun_jax_dots.json")
+
+
+def _reference():
+    with open(REFERENCE) as f:
+        return json.load(f)["combos"]
+
+
+def _hold(rec, ref, band):
+    """A port record's batched products and the rest a rank against the
+    JAX compile's dots a device, each within ``band`` (a fraction)."""
+    batched = rec["counted_batched_flops_per_rank"]
+    other = rec["counted_flops_per_rank"] - batched
+    for what, got, want in (("batched", batched, ref["batched_dot_flops"]),
+                            ("other", other, ref["other_dot_flops"])):
+        assert abs(got / want - 1) <= band, (what, got, want, got / want)
+
 
 def test_per_rank_flops_against_the_jax_compile_on_the_production_mesh():
     """qwen3-0.6b at one super-block on 16×16, train_4k and prefill_32k,
     attention in one chunk (``attn_chunk`` = the sequence, so XLA's count
-    has no loop body seen once): outside attention (the products without
-    a batch of matrices) a rank's FLOPs equal the JAX compile's dots to
-    2 %; in attention they are what the port's layout gives, a 1/256
-    share of the step's (split over the batch and every model rank),
-    against XLA's, which keeps every sequence on each device and splits
-    the heads over the 16 model ranks only — 1/16 of its score and value
-    products, 6 products of the port's backward against XLA's 5 in
-    train_4k.  The dry run departs from the reference there by design
-    (README, "The LM-scale dry run")."""
+    has no loop body seen once): a rank's FLOPs in the batched products
+    (attention's) and in the rest equal the JAX compile's dots a device to
+    5 % — attention with every sequence on each rank and the heads over
+    the 16 model ranks, the k and v gradients on half of hd a rank, as
+    XLA lays it out (qwen3-0.6b prefill_32k read 1/15 of XLA's before).
+    The live compile equals ``tests/data/dryrun_jax_dots.json``'s counts,
+    so the file is the current JAX package's."""
     jax_p = _start(_JAX_PROD, os.path.join(os.path.dirname(SRC), "tools"))
     port_p = _start(_PORT_PROD)
     port, ref = _last_json(port_p), _last_json(jax_p)
-    for shape, share in (("train_4k", 6 / 5 / 16), ("prefill_32k", 1 / 16)):
+    table = _reference()["qwen3-0.6b"]
+    for shape in ("train_4k", "prefill_32k"):
         p, j = port[shape], ref[shape]
-        other = p["counted_flops_per_rank"] - \
-            p["counted_batched_flops_per_rank"]
-        assert abs(other / j["other_dot_flops"] - 1) <= 0.02, (shape, p, j)
-        assert p["counted_flops_global"] == 256 * p["counted_flops_per_rank"]
-        got = p["counted_batched_flops_per_rank"] / j["batched_dot_flops"]
-        assert abs(got / share - 1) <= 1e-3, (shape, got, share)
+        assert j == table[shape]["16x16"], (shape, j, table[shape])
+        _hold(p, j, 0.05)
+        assert p["counted_flops_per_rank"] < p["counted_flops_global"]
+
+
+# one super-block, attention in one chunk: (arch, shape, band) on 16×16,
+# then on 2×16×16, each mesh's combos in one subprocess
+_BAND_COMBOS = {
+    "16x16": (("qwen3-0.6b", "prefill_32k", 0.05),
+              ("qwen3-4b", "prefill_32k", 0.05),
+              ("whisper-base", "train_4k", 0.10),
+              ("mamba2-370m", "prefill_32k", 0.10),
+              ("llama4-scout-17b-a16e", "prefill_32k", 0.10)),
+    "2x16x16": (("qwen3-0.6b", "prefill_32k", 0.05),),
+}
+
+_PORT_BAND = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+multi, combos = sys.argv[1] == "2x16x16", json.loads(sys.argv[2])
+D.fake_world(512 if multi else 256)
+chunk = {"train_4k": 4096, "prefill_32k": 32768}
+out = {}
+for arch, shape, _ in combos:
+    rec = D.analyse(*D.lower_combo(
+        arch, shape, multi_pod=multi,
+        cfg_override=D.cut_depth(get_config(arch), 1),
+        overrides={"attn_chunk": chunk[shape]}, device="cpu"))
+    out[f"{arch} {shape}"] = rec
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def band_records():
+    procs = {m: _start(_PORT_BAND, m, json.dumps(c))
+             for m, c in _BAND_COMBOS.items()}
+    return {m: _last_json(p, timeout=300) for m, p in procs.items()}
+
+
+@pytest.mark.parametrize("mesh, arch, shape, band", [
+    (m, a, s, b) for m, combos in _BAND_COMBOS.items() for a, s, b in combos],
+    ids=lambda v: str(v))
+def test_per_rank_flops_in_the_band_of_the_jax_compile(band_records, mesh,
+                                                        arch, shape, band):
+    """The port's batched products and the rest a rank, at one super-block
+    and one attention chunk, against the JAX compile's dots a device
+    (``tests/data/dryrun_jax_dots.json``): within 5 % for the dense archs,
+    10 % for llama4-scout (40 query heads, the experts), whisper-base (8
+    heads on 16 model ranks, the encoder's and the cross-attention's batch
+    kept split, the 51865-word vocab whole on every model rank) and
+    mamba2-370m (the SSD scan's heads over ``model``, C·Bᵀ whole on every
+    rank).  qwen3-0.6b prefill_32k on 16×16 read 1/15 of the reference's
+    dots where attention split over every rank."""
+    _hold(band_records[mesh][f"{arch} {shape}"],
+          _reference()[arch][shape][mesh], band)
+
+
+_HEADS_RANKS = r"""
+import numpy as np
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch import dtensor_layouts as DL
+from repro_torch.models.layers import chunked_attention
+from repro_torch.models.mamba2 import ssd_chunked
+
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+rng = np.random.default_rng(0)
+
+
+def t(*shape):
+    return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+
+
+def place(x, *pls):
+    return distribute_tensor(x, mesh, list(pls)).requires_grad_()
+
+
+def errs(fn, plain_args, placed, cot):
+    with implicit_replication():
+        o = fn(*placed)
+        g = torch.autograd.grad(
+            (o * distribute_tensor(cot, mesh, o.placements)).sum(), placed)
+    xs = [a.clone().requires_grad_() for a in plain_args]
+    o0 = fn(*xs)
+    g0 = torch.autograd.grad((o0 * cot).sum(), xs)
+    return [float((o.full_tensor() - o0).abs().max()),
+            float(o0.abs().max())] + [
+        float((a.full_tensor() - b).abs().max()) for a, b in zip(g, g0)]
+
+
+out = {}
+# (B, S, H, KV, hd, window, causal, keep_batch): heads aligned with the
+# model ranks; 1 KV head (the k/v gradients on an hd slice a rank); 3
+# heads (blocks of a batch split); B=1 (ranks repeating a block); the
+# encoder's batch kept split
+for name, (B, S, H, KV, hd, window, causal, keep) in {
+        "aligned": (2, 8, 4, 2, 4, None, True, False),
+        "sliced": (2, 8, 4, 1, 4, None, True, False),
+        "sliced_window": (2, 8, 4, 1, 4, 3, True, False),
+        "blocks": (4, 8, 3, 1, 4, None, False, False),
+        "repeats": (1, 8, 2, 2, 4, None, True, False),
+        "kept_batch": (4, 8, 3, 1, 4, None, False, True)}.items():
+    q, k, v, cot = t(B, S, H, hd), t(B, S, KV, hd), t(B, S, KV, hd), \
+        t(B, S, H, hd)
+    on = Shard(0) if B % 2 == 0 else Replicate()
+    placed = [place(x, on, Shard(2) if x.shape[2] % 2 == 0 else Replicate())
+              for x in (q, k, v)]
+
+    def attn(q, k, v):
+        heads = [1] if DL.is_dtensor(q) else None
+        return chunked_attention(q, k, v, window=window, chunk=4,
+                                 causal=causal, heads=heads,
+                                 keep_batch=keep)
+    out[name] = errs(attn, (q, k, v), placed, cot)
+
+# the SSD scan on the heads of each rank, C·Bᵀ whole on every rank
+B, S, nh, hp, N = 2, 8, 4, 4, 4
+x, Bm, Cm, cot = t(B, S, nh, hp), t(B, S, N), t(B, S, N), t(B, S, nh, hp)
+dt, A = t(B, S, nh).abs() * 0.5, -t(B, nh).abs()
+placed = [place(x, Shard(0), Shard(2)), place(dt, Shard(0), Shard(2)),
+          place(A, Shard(0), Shard(1)), place(Bm, Shard(0), Replicate()),
+          place(Cm, Shard(0), Replicate())]
+
+
+def scan(x, dt, A, Bm, Cm):
+    return ssd_chunked(x, dt, A, Bm, Cm, 4,
+                       heads=[1] if DL.is_dtensor(x) else None)
+
+
+out["ssd"] = errs(scan, (x, dt, A, Bm, Cm), placed, cot)
+
+# a product whose 5 outputs no model split divides: x's gradient over the
+# whole d_in on every model rank
+x, w, cot = t(4, 3, 8), t(8, 5), t(4, 3, 5)
+out["unsplit"] = errs(DL.unsplit_matmul, (x, w),
+                      [place(x, Shard(0), Replicate()),
+                       place(w, Shard(0), Replicate())], cot)
+emit(out)
+"""
+
+
+def test_head_split_attention_and_scan_equal_the_plain_path(tmp_path):
+    """The dry run's head-split layouts on real numbers, 4 gloo ranks of a
+    2×2 data × model mesh: ``chunked_attention`` (``dtensor_layouts.
+    attend``: every sequence on each rank, the heads over ``model``; the
+    k/v gradients on an hd slice where the query heads of a group are
+    split; blocks of a batch split where the heads do not divide; ranks
+    repeating a block; the batch kept split), ``ssd_chunked``
+    (``by_heads``) and ``unsplit_matmul`` equal the plain path — output
+    and every gradient — to 1e-5 of the output's scale, on every rank."""
+    from _torch_ranks import Ranks
+    for out in Ranks(_HEADS_RANKS, 4, str(tmp_path)).results():
+        for name, (e, m, *grads) in out.items():
+            assert e <= 1e-5 * max(1.0, m), (name, e, m)
+            for i, g in enumerate(grads):
+                assert g <= 1e-5 * max(1.0, m), (name, i, g, m)
 
 
 # ---------------------------------------------------------------------------
