@@ -387,6 +387,7 @@ DRYRUN_COMBOS = (
     ("qwen3-0.6b", "train_4k", "16x16", "ok", 1, {"attn_chunk": 4096}),
     ("qwen3-0.6b", "train_4k", "2x16x16", "ok", 1, {"attn_chunk": 4096}),
     ("qwen3-0.6b", "prefill_32k", "16x16", "ok", 1, {"attn_chunk": 32768}),
+    ("kimi-k2-1t-a32b", "decode_32k", "16x16", "ok", 1, None),
     ("qwen3-0.6b", "decode_32k", "16x16", "ok", 2, None),
     ("llama4-scout-17b-a16e", "train_4k", "16x16", "ok", 2, None),
     ("gemma3-12b", "long_500k", "16x16", "ok", 2, None),
@@ -397,7 +398,8 @@ DRYRUN_REFERENCE = os.path.join(ROOT, "tests", "data",
                                 "dryrun_jax_dots.json")
 #: combos whose batched products and the rest a rank are held to the
 #: reference's within this fraction
-DRYRUN_BAND = {("qwen3-0.6b", "prefill_32k", "16x16"): 0.05}
+DRYRUN_BAND = {("qwen3-0.6b", "prefill_32k", "16x16"): 0.05,
+               ("kimi-k2-1t-a32b", "decode_32k", "16x16"): 0.05}
 #: (arch, shape, fraction): the combo's per-rank FLOPs 2x16x16 / 16x16
 #: held to the reference's dots' ratio within the fraction
 DRYRUN_RATIO = ("qwen3-0.6b", "train_4k", 0.05)

@@ -385,13 +385,23 @@ def _block_index(m: int, sizes) -> tuple:
     g, r, b, rest = sizes
     return m // (r * b * rest), m // (b * rest) % r, m // rest % b
 
-def feature_dims(w: torch.Tensor):
+def feature_dims(w: torch.Tensor, dim: int = -1):
     """The mesh dims that split a DTensor weight's last dim (a
-    projection's output features: tensor parallelism's dims); None for
-    anything else."""
+    projection's output features: tensor parallelism's dims), or its
+    ``dim``; None for anything else."""
     if not is_dtensor(w):
         return None
-    return [i for i, pl in enumerate(w.placements) if pl.is_shard(w.dim() - 1)]
+    dim %= w.dim()
+    return [i for i, pl in enumerate(w.placements) if pl.is_shard(dim)]
+
+
+def replicate(t: torch.Tensor, dims) -> torch.Tensor:
+    """A DTensor gathered over the mesh dims ``dims`` (replicated there),
+    its other placements kept; anything else (or ``dims`` None) as it
+    is."""
+    if dims is None or not is_dtensor(t):
+        return t
+    return constrain(t, _moved_split(t, dims, None))
 
 
 def fsdp_gather(w: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
@@ -412,23 +422,67 @@ def fsdp_gather(w: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
 
 def matmul_operands(x: torch.Tensor, w: torch.Tensor):
     """(x, w) laid out for ``x @ w`` (w [..., d_in, d_out]) if both are
-    DTensors: ``w`` gathered as ``fsdp_gather`` gathers it; ``x``'s last
-    dim split over each mesh dim that splits ``w``'s ``d_in`` and
+    DTensors: ``w`` gathered as ``fsdp_gather`` gathers it, and ``x``'s
+    last dim split over each mesh dim that splits ``w``'s ``d_in`` and
     replicates ``x``, so the rank keeps only its slice of ``x`` for the
-    backward and computes the weight gradient of its own rows; and
-    ``w``'s ``d_out`` split over each mesh dim that replicates both, where
-    the split so far times its size divides it, so a small weight left
-    whole on every rank is not applied to the same tokens on all of them.
-    Each is a slice of what the rank holds, no collective.  Anything else
-    as it is."""
+    backward and computes the weight gradient of its own rows (a slice
+    of what the rank holds, no collective).  A small weight left whole on
+    every rank is applied to the same tokens on all of them, as XLA's
+    partitioning applies mamba2-370m's in train_4k and prefill_32k —
+    unless XLA moves the tokens to the weight instead (``_moves_tokens``:
+    a few tokens a data shard): then ``d_in`` is split over the mesh dims that
+    split neither operand, ``w`` unsplit elsewhere along it, and the
+    product is a partial sum over those dims.  Anything else as it is."""
     if not is_dtensor(x) or not is_dtensor(w):
         return x, w
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate, Shard
+    din = w.dim() - 2
+    free = _moves_tokens(x, w)
+    if free:
+        return (constrain(x, [Shard(x.dim() - 1) if i in free else pl
+                              for i, pl in enumerate(x.placements)]),
+                constrain(w, [Shard(din) if i in free else Replicate()
+                              if pl.is_shard(din) else pl
+                              for i, pl in enumerate(w.placements)]))
     w = fsdp_gather(w, x)
     x = constrain(x, [Shard(x.dim() - 1) if px.is_replicate()
-                      and pw.is_shard(w.dim() - 2) else px
+                      and pw.is_shard(din) else px
                       for px, pw in zip(x.placements, w.placements)])
     return x, w
+
+
+def _moves_tokens(x: torch.Tensor, w: torch.Tensor) -> list:
+    """The mesh dims that split neither operand of ``x @ w`` if XLA's
+    partitioning splits the contraction over them instead of repeating
+    the product there, else []: a few tokens a data shard on 16×16 (the
+    decode step's 8, the prefill's last positions) — whisper-base's LM
+    head ``[8, 32] · [32, 51865]`` a device, mamba2-370m's B and C
+    projections ``[8, 64] · [64, 128]`` (the tokens of a data shard,
+    d_model over the 16 model ranks; the weight's shard permuted there,
+    not gathered) — against ``[4, 512] · [512, 51865]`` on 2×16×16 and
+    whole rows over every position in train_4k and prefill_32k.  No
+    single rule of XLA's cost model gives all of these,
+    so this is keyed on what the compiles show: the mesh dims that split
+    w's d_in (its FSDP split) all split x's rows, they hold as many ranks
+    as the free dims (the weight's shard moves from one to the other
+    whole), and a rank holds at most d_out rows (its block of x is no
+    larger than the whole w, which the other way gathers: jamba's
+    ``[8, 256] · [256, 16]`` moves, whisper-base's prefill head, 65536
+    rows a rank, does not)."""
+    mesh, din, last = w.device_mesh, w.dim() - 2, x.dim() - 1
+    free = [i for i, (px, pw) in enumerate(zip(x.placements, w.placements))
+            if px.is_replicate() and pw.is_replicate()]
+    fsdp = [i for i, pl in enumerate(w.placements) if pl.is_shard(din)]
+    size = math.prod(mesh.size(i) for i in fsdp)
+    if not free or not fsdp or size != math.prod(mesh.size(i) for i in free):
+        return []
+    if x.shape[-1] % size or not all(
+            x.placements[i].is_shard() and x.placements[i].dim != last
+            for i in fsdp):
+        return []
+    rows = math.prod(x.shape[:-1]) // math.prod(
+        mesh.size(i) for i, pl in enumerate(x.placements) if pl.is_shard())
+    return free if rows <= w.shape[-1] else []
 
 
 class _WholeInputGrad(torch.autograd.Function):
@@ -481,7 +535,10 @@ def unsplit_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (``_WholeInputGrad``).  x's rows are split further over the mesh
     dims that split neither of w's dims, where its dim 0 divides (as
     ``dense`` scatters a partial sum); where it does not, those ranks
-    repeat the product, as XLA's do.  Anything else: ``x @ w``."""
+    repeat the product, as XLA's do — unless XLA moves the tokens to the
+    weight instead (``_moves_tokens``): then the contraction is split
+    over those ranks (``matmul_operands``) and the result is a partial
+    sum over them.  Anything else: ``x @ w``."""
     if not is_dtensor(x) or not is_dtensor(w):
         return x @ w
     last = w.dim() - 1
@@ -491,6 +548,8 @@ def unsplit_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dims = [i for i, (px, pw) in enumerate(zip(x.placements, w.placements))
             if px.is_shard(0) or pw.is_replicate()]
     x = constrain(x, _moved_split(x, dims, 0))
+    if _moves_tokens(x, w):
+        return torch.matmul(*matmul_operands(x, w))
     return _WholeInputGrad.apply(x, w)
 
 

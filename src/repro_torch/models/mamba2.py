@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from .. import dtensor_layouts as DL
 from ..kernels.ssd_scan import ops as ssd_ops
 from .config import ModelConfig
-from .layers import gen_device, kmm, per_client, randn, rms_norm
+from .layers import dense, gen_device, kmm, per_client, randn, rms_norm
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig):
@@ -190,7 +190,15 @@ def mamba_fwd(p, u, cfg: ModelConfig, *, impl: str = "xla"):
          .to(x.dtype))
     y = y.reshape(K, B, S, cfg.d_inner)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return kmm(y, p["out_proj"])
+    return _out_proj(p, y)
+
+
+def _out_proj(p, y):
+    """The output projection, as ``dense``: on DTensors its partial sum
+    over the ranks that split d_inner is reduced, so the next layer's
+    projections (jamba's mamba layers after an MoE one) meet a reduced
+    stream, not 16 ranks' partial ones."""
+    return dense({"w": p["out_proj"]}, y)
 
 
 # ----------------------------------------------------------------------------
@@ -252,7 +260,7 @@ def mamba_decode(p, u, cache: dict, cfg: ModelConfig):
     for name, new in (("conv_x", tx), ("conv_B", tB), ("conv_C", tC),
                       ("ssm", h)):
         cache[name].copy_(new.reshape(cache[name].shape))
-    return kmm(y, p["out_proj"])[:, :, None, :], cache
+    return _out_proj(p, y)[:, :, None, :], cache
 
 
 def _conv_tail(raw, taps: int):
@@ -302,4 +310,4 @@ def mamba_prefill(p, u, cfg: ModelConfig, *, impl: str = "pallas"):
              "conv_C": _conv_tail(Cr, taps), "ssm": h}
     cache = {k: v.reshape(K * B, *v.shape[2:]) if k != "ssm" else v
              for k, v in cache.items()}
-    return kmm(y, p["out_proj"]), cache
+    return _out_proj(p, y), cache

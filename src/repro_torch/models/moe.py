@@ -107,17 +107,23 @@ def _aux(counts, probs, Tg: int, k: int):
     return counts.shape[-1] * torch.sum(frac * probs.mean(dim=-2), dim=-1)
 
 
-def _split_dispatch(p, xf, logits, k: int, capacity: int):
-    """The DTensor form of the group loop: xf [G, Tg, D] and logits
-    [G, Tg, E] with the groups split over the data axes.  Each rank routes
-    its own groups (``DL.by_group``), as the JAX package's ``vmap`` over
-    groups does under XLA; the slots of all groups meet the experts as one
+def _split_dispatch(p, x, xf, k: int, capacity: int):
+    """The DTensor form of the group loop: x [B, S, D] and its groups xf
+    [G, Tg, D], split over the data axes.  The router's logits are a
+    token's own, so each rank takes them on the tokens of its data shard
+    (x's split, gathered over the experts' mesh dims), as XLA's do, and
+    lays them out as the groups: the decode step's one group is whole on
+    every rank, its router product is not.  Each rank routes its own
+    groups (``DL.by_group``), as the JAX package's ``vmap`` over groups
+    does under XLA; the slots of all groups meet the experts as one
     [E, G·C, D] batch, experts split over ``model`` as their weights are,
     so a rank runs its own experts on its own groups' slots; the outputs
     come back to the groups' ranks for the combine.  Returns (y [G, Tg,
     D], the per-group aux losses [G])."""
     G, Tg, D = xf.shape
-    E = logits.shape[-1]
+    E = p["router"].shape[-1]
+    xr = DL.replicate(x, DL.feature_dims(p["wg"], 0))
+    logits = DL.batch_split(xr.float() @ p["router"], G).reshape(G, Tg, E)
 
     def route(xl, ll):
         outs = [_dispatch_group(xl[g], ll[g], k, capacity)
@@ -154,11 +160,11 @@ def moe_apply(p, x, cfg: ModelConfig, *, n_groups: int = 1):
     x = DL.reduce_partial(x, 0)
     xg = DL.batch_split(x, n_groups)
     xf = xg.reshape(n_groups, Tg, D)
-    logits = xf.float() @ p["router"]
     if DL.is_dtensor(xf):
-        y, aux = _split_dispatch(p, xf, logits, k, capacity)
+        y, aux = _split_dispatch(p, x, xf, k, capacity)
         y, aux = DL.pin(y.reshape(B, S, D)), aux.mean()
     else:
+        logits = xf.float() @ p["router"]
         ys, auxs = [], []
         for g in range(n_groups):
             xe, st, sg, keep, dest, counts, probs = _dispatch_group(

@@ -30,9 +30,12 @@ dryrun}``) against the JAX package's.
   production meshes, one super-block with attention in one chunk, the
   batched products and the rest a rank against the compile's dots a
   device: qwen3-0.6b against a live compile (which equals
-  ``tests/data/dryrun_jax_dots.json``), six combos against that file;
+  ``tests/data/dryrun_jax_dots.json``), the ``_BAND_COMBOS`` against
+  that file (train_4k, prefill_32k, the decode steps and a long_500k);
 * the head-split layouts (``attend``, ``by_heads``, ``unsplit_matmul``)
-  on 4 gloo ranks against the plain path, values and gradients;
+  on 4 gloo ranks against the plain path, values and gradients; so too
+  the decode step's router, the LM head and projection whose
+  contraction moves to the model ranks, and mamba layers in a row;
 * the vocab-split log-sum-exp, gold logit and masked embedding lookup on
   4 gloo ranks against the plain ops, values and gradients; the
   log-sum-exp's peak on 2 fake ranks against a hand count (no [.., V]
@@ -743,15 +746,23 @@ def test_per_rank_flops_against_the_jax_compile_on_the_production_mesh():
         assert p["counted_flops_per_rank"] < p["counted_flops_global"]
 
 
-# one super-block, attention in one chunk: (arch, shape, band) on 16×16,
-# then on 2×16×16, each mesh's combos in one subprocess
+# one super-block, attention in one chunk (a decode step has none):
+# (arch, shape, band) on 16×16, then on 2×16×16, each mesh's combos in
+# one subprocess
 _BAND_COMBOS = {
     "16x16": (("qwen3-0.6b", "prefill_32k", 0.05),
               ("qwen3-4b", "prefill_32k", 0.05),
               ("whisper-base", "train_4k", 0.10),
               ("mamba2-370m", "prefill_32k", 0.10),
-              ("llama4-scout-17b-a16e", "prefill_32k", 0.10)),
-    "2x16x16": (("qwen3-0.6b", "prefill_32k", 0.05),),
+              ("llama4-scout-17b-a16e", "prefill_32k", 0.10),
+              ("whisper-base", "decode_32k", 0.05),
+              ("mamba2-370m", "decode_32k", 0.05),
+              ("llama4-scout-17b-a16e", "decode_32k", 0.05),
+              ("kimi-k2-1t-a32b", "decode_32k", 0.05),
+              ("jamba-v0.1-52b", "prefill_32k", 0.10),
+              ("jamba-v0.1-52b", "long_500k", 0.10)),
+    "2x16x16": (("qwen3-0.6b", "prefill_32k", 0.05),
+                ("kimi-k2-1t-a32b", "decode_32k", 0.05)),
 }
 
 _PORT_BAND = r"""
@@ -766,7 +777,8 @@ for arch, shape, _ in combos:
     rec = D.analyse(*D.lower_combo(
         arch, shape, multi_pod=multi,
         cfg_override=D.cut_depth(get_config(arch), 1),
-        overrides={"attn_chunk": chunk[shape]}, device="cpu"))
+        overrides={"attn_chunk": chunk[shape]} if shape in chunk else None,
+        device="cpu"))
     out[f"{arch} {shape}"] = rec
 print(json.dumps(out))
 """
@@ -786,13 +798,20 @@ def test_per_rank_flops_in_the_band_of_the_jax_compile(band_records, mesh,
                                                         arch, shape, band):
     """The port's batched products and the rest a rank, at one super-block
     and one attention chunk, against the JAX compile's dots a device
-    (``tests/data/dryrun_jax_dots.json``): within 5 % for the dense archs,
-    10 % for llama4-scout (40 query heads, the experts), whisper-base (8
-    heads on 16 model ranks, the encoder's and the cross-attention's batch
-    kept split, the 51865-word vocab whole on every model rank) and
-    mamba2-370m (the SSD scan's heads over ``model``, C·Bᵀ whole on every
-    rank).  qwen3-0.6b prefill_32k on 16×16 read 1/15 of the reference's
-    dots where attention split over every rank."""
+    (``tests/data/dryrun_jax_dots.json``): within 5 % for the dense archs
+    and the decode steps, 10 % for llama4-scout (40 query heads, the
+    experts), whisper-base (8 heads on 16 model ranks, the encoder's and
+    the cross-attention's batch kept split, the 51865-word vocab whole on
+    every model rank), mamba2-370m (the SSD scan's heads over ``model``,
+    C·Bᵀ whole on every rank) and jamba-v0.1-52b.  qwen3-0.6b prefill_32k
+    on 16×16 read 1/15 of the reference's dots where attention split over
+    every rank; the decode steps' rest read 13.737× and 14.366×
+    (whisper-base, mamba2-370m: the LM head, and mamba2's B and C
+    projections, repeated on the 16 model ranks), 1.014× and 1.479×
+    (llama4-scout, kimi-k2: the router on the whole batch on every
+    rank), and 1.991× for kimi-k2 on 2×16×16; jamba-v0.1-52b
+    prefill_32k's 1.311× under torch 2.13 (a mamba layer's projections
+    on a partial sum over ``model``)."""
     _hold(band_records[mesh][f"{arch} {shape}"],
           _reference()[arch][shape][mesh], band)
 
@@ -897,6 +916,136 @@ def test_head_split_attention_and_scan_equal_the_plain_path(tmp_path):
             assert e <= 1e-5 * max(1.0, m), (name, e, m)
             for i, g in enumerate(grads):
                 assert g <= 1e-5 * max(1.0, m), (name, i, g, m)
+
+
+_REPAIRED_RANKS = r"""
+import numpy as np
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch import dtensor_layouts as DL
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.trees import tree_leaves, tree_map
+from repro_torch.launch import sharding as shd
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import kmm
+from repro_torch.models.mamba2 import init_mamba, mamba_fwd
+from repro_torch.models.moe import moe_apply
+from test_torch_moe import _plain_case
+
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+rng = np.random.default_rng(3)
+
+
+def t(*shape):
+    return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+
+
+def placed(tree, prefix):
+    specs = shd.tree_pspecs({prefix: tree}, ("data",), mesh=mesh)[prefix]
+    return tree_map(lambda a, s: distribute_tensor(
+        a.clone(), mesh, shd.to_placements(s, mesh)).requires_grad_(),
+        tree, specs)
+
+
+# fn on the DTensor arguments and on the plain ones: the largest
+# difference and the plain one's scale of the output and of every
+# gradient, and the output's placements
+def errs(fn, plain, dist, cot):
+    dist, plain = dict(enumerate(dist)), dict(enumerate(plain))
+    with implicit_replication():
+        o = fn(*dist.values())
+        o = o[0] if isinstance(o, tuple) else o
+        pls = str(o.placements)
+        g = torch.autograd.grad((o * distribute_tensor(
+            cot, mesh, [Replicate(), Replicate()])).sum(), tree_leaves(dist))
+    plain = tree_map(lambda a: a.clone().requires_grad_(), plain)
+    o0 = fn(*plain.values())
+    o0 = o0[0] if isinstance(o0, tuple) else o0
+    g0 = torch.autograd.grad((o0 * cot).sum(), tree_leaves(plain))
+    return {"errs": [[float((a.full_tensor() - b).abs().max()),
+                      float(b.abs().max())]
+                     for a, b in zip([o] + list(g), [o0] + list(g0))],
+            "placements": pls}
+
+
+out = {}
+# the decode step's router: one group of 4 tokens, the tokens split over
+# both mesh dims on arrival; the logits on each rank's data shard
+cfg = ModelConfig(name="t", arch_type="moe", n_layers=2, d_model=32,
+                  n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=128,
+                  n_experts=4, top_k=2, expert_d_ff=48, n_shared_experts=1,
+                  capacity_factor=1.25, dtype="float32")
+params, _, _ = _plain_case()
+tp = params_from_numpy(params, "cpu")
+x = t(4, 1, 32)
+out["router"] = errs(
+    lambda p, x: moe_apply(p, x, cfg, n_groups=1), [tp, x],
+    [placed(tp, "ffn"), distribute_tensor(x, mesh, [Shard(0), Shard(0)])
+     .requires_grad_()], t(4, 1, 32))
+
+# the LM head whose 5 outputs no model split divides, and a projection
+# whose 4 outputs no mesh dim splits (a mamba layer's B), one token a
+# data shard: the contraction over the model ranks (a partial sum there)
+x, w = t(2, 1, 8), t(8, 5)
+out["head"] = errs(DL.unsplit_matmul, [x, w], [
+    distribute_tensor(x, mesh, [Shard(0), Replicate()]).requires_grad_(),
+    distribute_tensor(w, mesh, [Shard(0), Replicate()]).requires_grad_()],
+    t(2, 1, 5))
+x, w = t(1, 2, 8), t(1, 8, 4)
+out["proj"] = errs(kmm, [x, w], [
+    distribute_tensor(x, mesh, [Shard(1), Replicate()]).requires_grad_(),
+    distribute_tensor(w, mesh, [Shard(1), Replicate()]).requires_grad_()],
+    t(1, 2, 4))
+
+# two mamba layers in a row (jamba's): the first one's output projection
+# reduced before the second one's projections take it
+mc = ModelConfig(name="m", arch_type="ssm", n_layers=2, d_model=8,
+                 n_heads=1, n_kv_heads=1, d_ff=0, vocab_size=16,
+                 ssm_state=4, ssm_head_dim=4, ssm_expand=2, ssm_chunk=4,
+                 dtype="float32")
+g = torch.Generator().manual_seed(0)
+layers = [tree_map(lambda a: a[None], init_mamba(g, mc)) for _ in range(2)]
+u = t(1, 2, 8, 8)
+
+
+def two(p1, p2, u):
+    h = mamba_fwd(p1, u, mc)
+    return mamba_fwd(p2, u + h, mc) + h
+
+
+out["mamba"] = errs(two, layers + [u], [
+    placed(layers[0], "mixer"), placed(layers[1], "mixer"),
+    distribute_tensor(u, mesh, [Shard(1), Replicate()]).requires_grad_()],
+    t(1, 2, 8, 8))
+with implicit_replication():
+    pl = placed(layers[0], "mixer")
+    out["mamba_out"] = str(mamba_fwd(pl, distribute_tensor(
+        u, mesh, [Shard(1), Replicate()]), mc).placements)
+emit(out)
+"""
+
+
+def test_repaired_rules_equal_the_plain_path(tmp_path):
+    """The rules this dry run's repairs added, on real numbers, 4 gloo
+    ranks of a 2×2 data × model mesh, against the plain path — the output
+    and every gradient each to 1e-5 of its own scale, on every rank: the
+    decode step's MoE router (one group, its tokens arriving split over
+    both mesh dims; the logits taken on each rank's data shard), the LM
+    head whose vocab no model split divides and a projection whose
+    outputs no mesh dim splits, with one token a data shard
+    (``unsplit_matmul``'s and ``kmm``'s contraction over the model ranks,
+    a partial sum there), and two mamba layers in a row (the output
+    projection reduced as ``dense`` reduces it, so the second layer's
+    projections meet no partial sum)."""
+    from _torch_ranks import Ranks
+    for out in Ranks(_REPAIRED_RANKS, 4, str(tmp_path)).results():
+        assert "Partial" in out["head"]["placements"]
+        assert "Partial" in out["proj"]["placements"]
+        assert "Partial" not in out["mamba_out"]
+        for name in ("router", "head", "proj", "mamba"):
+            for i, (e, m) in enumerate(out[name]["errs"]):
+                assert e <= 1e-5 * max(1.0, m), (name, i, e, m)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ at one super-block on the 16×16 and 2×16×16 meshes.
         [--shapes train_4k,prefill_32k] [--attn-chunk N|one] [--port DIR] \\
         [--ref tests/data/dryrun_jax_dots.json] [--dots]
     PYTHONPATH=src python3 tools/dryrun_vs_jax.py --write \\
-        tests/data/dryrun_jax_dots.json --shapes train_4k,prefill_32k,decode_32k
+        tests/data/dryrun_jax_dots.json \\
+        --shapes train_4k,prefill_32k,decode_32k,long_500k
     PYTHONPATH=src python3 tools/dryrun_vs_jax.py --map
 
 Runs ``repro.launch.dryrun.lower_combo`` (the JAX package's own dry run,
@@ -18,9 +19,11 @@ a batch dimension (attention's score and value products, the experts'
 GEMMs) and the rest (the projections).  ``--attn-chunk N`` (as the
 ``attn_chunk`` lever) with N the sequence leaves attention no chunk loop,
 whose body XLA's counts see once; ``--attn-chunk one`` takes each shape's
-sequence (``ONE_CHUNK``).  ``--dots`` prints, below each row, every
-batched dot of the partitioned program: its shapes a device and the
-collectives that feed each operand (``dot_report``).
+sequence (``ONE_CHUNK``; a decode shape has no chunk).  ``--dots``
+prints, below each row, every batched dot of the partitioned program and
+the ``TOP_OTHER`` other dots with the most FLOPs (the LM head, the
+router, the projections): their shapes a device and the collectives that
+feed each operand (``dot_report``).
 
 With ``--port DIR`` (the port's records at one super-block, e.g. of
 ``tools/dryrun_sweep.py --blocks 1 --shape S [--override attn_chunk=N]``
@@ -28,14 +31,17 @@ from a card's host) it prints the port's ``counted_flops_per_rank`` and
 ``counted_batched_flops_per_rank`` beside them and port / JAX of the
 batched and of the other FLOPs, and the port's ratio to 16×16 over
 XLA's dots' (both count dots only; ``hlo_flops`` also counts elementwise
-ops).  ``--ref FILE`` takes the JAX side from a ``--write`` file instead
-of compiling.  ``--write FILE`` compiles ``--archs`` × ``--shapes`` × both
-meshes at one attention chunk and writes the counts with the JAX version
-(``write_reference``; the committed ``tests/data/dryrun_jax_dots.json``
-holds the reference's side of the port's tests).  ``--map`` compiles
-qwen3-0.6b's train step over a grid of meshes, sequence lengths,
-sequences a data shard and KV heads, and prints the table of XLA's
-attention split (``attention_map``).  CPU only; imports JAX, not the
+ops), and the port's ``counted_peak_bytes_per_rank`` beside the compile's
+``temp_size_in_bytes`` (two different counts: the port's eager peak of
+live storages, XLA's buffer assignment).  ``--ref FILE`` takes the JAX
+side from a ``--write`` file instead of compiling.  ``--write FILE``
+compiles ``--archs`` × ``--shapes`` × both meshes at one attention chunk
+and writes the counts with the JAX version (``write_reference``; the
+committed ``tests/data/dryrun_jax_dots.json`` holds the reference's side
+of the port's tests, every combo ``specs.supports`` allows).  ``--map``
+compiles qwen3-0.6b's train step over a grid of meshes, sequence
+lengths, sequences a data shard and KV heads, and prints the table of
+XLA's attention split (``attention_map``).  CPU only; imports JAX, not the
 port.
 
 ``compile_record`` is also the JAX side of
@@ -53,7 +59,7 @@ import time
 
 ARCHS = ("qwen3-0.6b", "qwen3-4b", "gemma3-12b", "llava-next-34b",
          "llama4-scout-17b-a16e", "qwen2-72b", "whisper-base",
-         "mamba2-370m")
+         "mamba2-370m", "jamba-v0.1-52b", "kimi-k2-1t-a32b")
 MESHES = ("16x16", "2x16x16")
 
 _DEF = re.compile(r"%([\w.\-]+) = \w+\[([\d,]*)\]")
@@ -110,12 +116,15 @@ def _groups(attrs: str) -> str:
     return "pairs " + got.group(1) if got else "-"
 
 
-def dot_report(hlo: str, depth: int = 12) -> list:
+def dot_report(hlo: str, depth: int = 12, batched: bool = True,
+               top: int = 0) -> list:
     """Each batched dot of an HLO module's text (a batch dimension of more
-    than one element): its result and operand shapes, its FLOPs, and the
-    collectives that feed each operand — found by walking the operand's
-    producers back, through every op but a dot or a parameter, ``depth``
-    steps at most."""
+    than one element), or with ``batched=False`` each other dot (the
+    projections, the LM head, the router): its result and operand shapes,
+    its FLOPs, and the collectives that feed each operand — found by
+    walking the operand's producers back, through every op but a dot or a
+    parameter, ``depth`` steps at most.  ``top``: the ``top`` dots with
+    the most FLOPs only (0: all, in the program's order)."""
     insts = {}
     for line in hlo.splitlines():
         m = _INST.match(line)
@@ -142,18 +151,20 @@ def dot_report(hlo: str, depth: int = 12) -> list:
 
     rows = []
     for name, (typ, op, operands, attrs) in insts.items():
-        if op != "dot" or "lhs_batch_dims" not in attrs:
+        if op != "dot":
             continue
         lhs, rhs = (insts[o][0].split("{")[0] for o in operands[:2])
-        batched, _ = dot_flops(f"%{name} = {typ} dot(%{operands[0]}, "
-                               f"%{operands[1]}), {attrs}\n"
-                               f"%{operands[0]} = {lhs}\n")
-        if not batched:
+        flops = dot_flops(f"%{name} = {typ} dot(%{operands[0]}, "
+                          f"%{operands[1]}), {attrs}\n"
+                          f"%{operands[0]} = {lhs}\n")[0 if batched else 1]
+        if not flops:
             continue
         rows.append({"dot": name, "out": typ.split("{")[0], "lhs": lhs,
-                     "rhs": rhs, "flops": batched,
+                     "rhs": rhs, "flops": flops,
                      "lhs_feeds": feeds(operands[0]),
                      "rhs_feeds": feeds(operands[1])})
+    if top:
+        rows = sorted(rows, key=lambda r: -r["flops"])[:top]
     return rows
 
 
@@ -161,11 +172,14 @@ def compile_record(arch: str, shape, *, mesh="16x16", cfg_kw=None,
                    overrides=None, dots: bool = False) -> dict:
     """The JAX package's compile of ``arch`` cut to one super-block on
     ``mesh`` ("16x16", "2x16x16", or dims of a ("data", "model") mesh of
-    the forced host devices): ``hlo_flops``, ``batched_dot_flops`` and
-    ``other_dot_flops`` a device.  ``shape`` is an input shape's name or
-    (name, seq_len, global_batch, kind); ``cfg_kw`` replaces config
-    fields after the cut, ``overrides`` are ``lower_combo``'s levers;
-    ``dots`` adds ``dot_report``'s rows."""
+    the forced host devices): ``hlo_flops``, ``batched_dot_flops``,
+    ``other_dot_flops`` and the compile's ``temp_size_in_bytes``
+    (``memory_analysis``) a device; None where ``specs.supports``
+    refuses the combo.  ``shape`` is an input shape's name or (name,
+    seq_len, global_batch, kind); ``cfg_kw`` replaces config fields after
+    the cut, ``overrides`` are ``lower_combo``'s levers; ``dots`` adds
+    ``dot_report``'s rows: every batched dot (``dots``) and the
+    ``TOP_OTHER`` other dots with the most FLOPs (``other_dots``)."""
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
     from repro.configs import get_config
@@ -185,19 +199,26 @@ def compile_record(arch: str, shape, *, mesh="16x16", cfg_kw=None,
     lowered, compiled, info = JD.lower_combo(
         arch, shape, multi_pod=mesh == "2x16x16", cfg_override=cfg,
         overrides=overrides)
+    if info.get("skipped"):
+        return None
     rec = JD.analyse(lowered, compiled, info, cfg)
     hlo = compiled.as_text()
     batched, other = dot_flops(hlo)
     out = {"hlo_flops": rec["hlo_flops"], "batched_dot_flops": batched,
-           "other_dot_flops": other}
+           "other_dot_flops": other,
+           "temp_size_in_bytes": rec.get("temp_size_in_bytes")}
     if dots:
         out["dots"] = dot_report(hlo)
+        out["other_dots"] = dot_report(hlo, batched=False, top=TOP_OTHER)
     return out
 
 
-# one attention chunk a shape (None: no chunk loop), so that no count sees
-# a loop body once
-ONE_CHUNK = {"train_4k": 4096, "prefill_32k": 32768, "decode_32k": None}
+# one attention chunk a shape (None: a decode step, no chunk loop), so that
+# no count sees a loop body once
+ONE_CHUNK = {"train_4k": 4096, "prefill_32k": 32768, "decode_32k": None,
+             "long_500k": None}
+# the non-batched dots ``--dots`` prints a combo
+TOP_OTHER = 6
 
 
 def _levers(shape: str, attn_chunk=None):
@@ -223,7 +244,9 @@ def write_reference(path: str, archs=ARCHS, shapes=tuple(ONE_CHUNK)) -> dict:
     ``archs`` × ``shapes`` × both meshes at one super-block and one
     attention chunk (``ONE_CHUNK``), written to ``path`` as JSON with the
     JAX version: ``combos[arch][shape][mesh]`` holds ``hlo_flops``,
-    ``batched_dot_flops`` and ``other_dot_flops``."""
+    ``batched_dot_flops``, ``other_dot_flops`` and
+    ``temp_size_in_bytes``.  A combo ``specs.supports`` refuses (long_500k
+    for a full-attention arch) has no entry."""
     import jax
     out = {"jax_version": jax.__version__, "blocks": 1,
            "attn_chunk": {s: ONE_CHUNK[s] for s in shapes}, "combos": {}}
@@ -231,9 +254,11 @@ def write_reference(path: str, archs=ARCHS, shapes=tuple(ONE_CHUNK)) -> dict:
         for shape in shapes:
             for mesh in MESHES:
                 t0 = time.perf_counter()
-                out["combos"].setdefault(arch, {}).setdefault(shape, {})[
-                    mesh] = compile_record(arch, shape, mesh=mesh,
-                                           overrides=_levers(shape, "one"))
+                rec = compile_record(arch, shape, mesh=mesh,
+                                     overrides=_levers(shape, "one"))
+                if rec is not None:
+                    out["combos"].setdefault(arch, {}).setdefault(
+                        shape, {})[mesh] = rec
                 print(f"[jax] {arch} {shape} {mesh}: "
                       f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
                       flush=True)
@@ -293,7 +318,8 @@ def main(argv=None):
     ap.add_argument("--ref", default=None,
                     help="take the JAX side from this --write file")
     ap.add_argument("--dots", action="store_true",
-                    help="print each batched dot's shapes and feeds")
+                    help="print each batched dot's shapes and feeds, and "
+                         "the largest other dots'")
     ap.add_argument("--write", default=None,
                     help="write the reference's counts (one chunk) here")
     ap.add_argument("--map", action="store_true",
@@ -318,11 +344,11 @@ def main(argv=None):
         with open(args.ref) as f:
             ref = json.load(f)["combos"]
     head = ("| arch | shape | mesh | JAX hlo_flops | JAX batched dots | "
-            "JAX other dots | JAX dots / 16x16's |")
+            "JAX other dots | JAX dots / 16x16's | JAX temp bytes |")
     if args.port:
         head += (" port flops | port batched | port other | batched port / "
                  "JAX | other port / JAX | port flops / 16x16's | port "
-                 "ratio / JAX ratio |")
+                 "ratio / JAX ratio | port peak bytes |")
     print(head)
     print("| --- " * (head.count("|") - 1) + "|")
     for shape in shapes:
@@ -331,17 +357,20 @@ def main(argv=None):
             first = {}
             for mesh in MESHES:
                 t0 = time.perf_counter()
-                j = (ref[arch][shape][mesh] if ref else
+                j = (ref.get(arch, {}).get(shape, {}).get(mesh) if ref else
                      compile_record(arch, shape, mesh=mesh, overrides=levers,
                                     dots=args.dots))
                 print(f"[jax] {arch} {shape} {mesh}: "
                       f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
                       flush=True)
+                if j is None:       # refused by specs.supports
+                    continue
                 dots = j["batched_dot_flops"] + j["other_dot_flops"]
                 jr = dots / first.setdefault("jax", dots)
                 row = (f"| {arch} | {shape} | {mesh} | {j['hlo_flops']:.4e} "
                        f"| {j['batched_dot_flops']:.4e} | "
-                       f"{j['other_dot_flops']:.4e} | {jr:.3f} |")
+                       f"{j['other_dot_flops']:.4e} | {jr:.3f} | "
+                       f"{j.get('temp_size_in_bytes')} |")
                 p = args.port and port_record(
                     args.port, arch, shape, mesh,
                     levers and levers["attn_chunk"])
@@ -352,15 +381,18 @@ def main(argv=None):
                     row += (f" {f:.4e} | {fb:.4e} | {f - fb:.4e} | "
                             f"{_ratio(fb, j['batched_dot_flops'])} | "
                             f"{_ratio(f - fb, j['other_dot_flops'])} | "
-                            f"{pr:.3f} | {pr / jr:.3f} |")
+                            f"{pr:.3f} | {pr / jr:.3f} | "
+                            f"{p.get('counted_peak_bytes_per_rank')} |")
                 elif args.port:
                     first["port"] = float("nan")
-                    row += " - | - | - | - | - | - | - |"
+                    row += " - | - | - | - | - | - | - | - |"
                 print(row, flush=True)
-                for d in j.get("dots", ()):
-                    print(f"    {d['out']} = {d['lhs']} · {d['rhs']}: "
-                          f"{d['flops']:.4e}; lhs from {d['lhs_feeds']}, "
-                          f"rhs from {d['rhs_feeds']}")
+                for what in ("dots", "other_dots"):
+                    for d in j.get(what, ()):
+                        print(f"    {d['out']} = {d['lhs']} · {d['rhs']}: "
+                              f"{d['flops']:.4e}; lhs from "
+                              f"{d['lhs_feeds']}, rhs from "
+                              f"{d['rhs_feeds']}")
     return 0
 
 
